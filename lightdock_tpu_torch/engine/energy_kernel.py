@@ -1,0 +1,160 @@
+"""Kernel energy path: the per-step preparation around the DFIRE kernel.
+
+Port of ``lightdock_tpu/engine/energy_pallas.py`` ``make_pallas_energy_fn``
+(its ``energy_fn`` and ``_compute``) for DFIRE with a rigid receptor:
+rotation, the re-centred ligand (G, 3, Nl), the box cull at the 15 A energy
+cutoff, the 2.45 A interface cutoff and the near cutoff, sub-box to tile
+coarsening, the OR over each pose chunk, the moved-first + Morton pose
+order and its inverse, the moved gate, then the kernel
+(``ops.dfire_pairs``), the affine finish and the restraint bias.
+
+The tile shape is the GPU's own (``ops.tiling.R_TILE`` x ``L_TILE``, 16
+poses a chunk); the TPU's tile picker and VMEM pose cap do not apply.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from lightdock_tpu import constants as C
+from lightdock_tpu.engine.energy_batch import (BatchScoringParams,
+                                               ensure_dfire_types)
+
+from ..ops import quaternion as qt
+from ..ops.cull import cull_mask_boxes, morton_key
+from ..ops.dfire_pairs import POSE_BLOCK, dfire_pairs, dfire_tables
+from ..ops.tiling import (L_TILE, R_TILE, cull_subsizes, pad_box_groups,
+                          rec_box_geometry, spatial_sort_params, tile_boxes)
+from .energy_dense import bias, finalize_raw, rotate_translate
+
+
+def kernel_params(params: BatchScoringParams) -> BatchScoringParams:
+    """``params`` as the kernel path takes them: the type-indexed DFIRE
+    tables without the redundant (K, Nr, Nl) dq tensor, and both atom axes
+    in RCB order so the tile cull bites (energies are unchanged)."""
+    if params.method == "dfire":
+        params = dataclasses.replace(ensure_dfire_types(params), dfire_dq=None)
+    return spatial_sort_params(params)
+
+
+def frame_center(params: BatchScoringParams) -> np.ndarray:
+    """The frame the kernel path works in: the receptor's mean, taken in
+    f64.  Distances are translation-invariant; re-centring keeps the
+    coordinates small."""
+    return np.asarray(params.rec_coords, dtype=np.float64).mean(axis=0)
+
+
+def make_kernel_energy_fn(params: BatchScoringParams, device,
+                          dtype: torch.dtype = torch.float32,
+                          cull: bool = True):
+    """Build ``energy_fn(p, t, q, a_rec, a_lig, moved=None,
+    prev_scoring=None) -> (G,)``.
+
+    ``params`` is the NumPy ``BatchScoringParams`` (spatially sorted, with
+    the type-indexed DFIRE tables of ``energy_batch.ensure_dfire_types``);
+    the cull boxes and the kernel's tables are built from it once, on
+    ``device`` at ``dtype``.  ``p``, given at each call, is the same
+    complex as tensors (``engine.params.torch_params``).
+    """
+    if params.method != "dfire":
+        raise NotImplementedError(
+            f"{params.method!r} scoring needs the elec/vdw kernel (K3), which "
+            "a later port brings")
+    if params.use_anm and (params.rec_nmodes.shape[0] > 0
+                           or params.lig_nmodes.shape[0] > 0):
+        raise NotImplementedError(
+            "ANM poses reach the kernel path in a later port (receptor ANM "
+            "in K1); run with use_anm=False")
+    if params.dfire_rec_half is None:
+        raise ValueError("the DFIRE kernel needs the type-indexed tables "
+                         "(energy_batch.ensure_dfire_types)")
+    r_tile, l_tile = R_TILE, L_TILE
+    nr = params.rec_coords.shape[0]
+    nl = params.lig_coords.shape[0]
+    r_sub, l_sub = cull_subsizes(nr, nl, r_tile, l_tile)
+    n_r = -(-nr // r_tile)
+    n_l = -(-nl // l_tile)
+    rg, lg = r_tile // r_sub, l_tile // l_sub
+    # Cull boxes of r_sub x l_sub atoms, nested in the kernel tiles by the
+    # RCB order; bits are OR-reduced to tiles each step.
+    rc, rh = rec_box_geometry(params.rec_coords, r_tile, r_sub)
+    lc, lh = pad_box_groups(*tile_boxes(params.lig_coords, l_sub), n_l, lg)
+    # Interface flags feed only the restraint and membrane bias.
+    need_iface = (params.rec_res_onehot.shape[0] > 0
+                  or params.lig_res_onehot.shape[0] > 0
+                  or params.rec_num_membrane > 0)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    tables = dfire_tables(tensor(params.dfire_rec_half),
+                          tensor(params.dfire_lig_onehot),
+                          np.asarray(params.dfire_thresholds, np.float64),
+                          r_tile, l_tile)
+    cuts = [15.0, (C.INTERFACE_CUTOFF + 1.0) / 2.0]
+    if tables.split is not None:
+        cuts.append(float(np.sqrt(tables.thresholds[tables.split])))
+    rc, rh, lc, lh = tensor(rc), tensor(rh), tensor(lc), tensor(lh)
+    center = tensor(frame_center(params))
+
+    def energy_fn(p: BatchScoringParams, t, q, a_rec, a_lig,
+                  moved=None, prev_scoring=None):
+        """(G,) scores.  Poses go to the kernel moved first, then in Morton
+        order of the translation, and come back in their own order: unmoved
+        poses fill whole chunks the kernel skips (their stored score passes
+        through), and coherent chunks keep the chunk cull bits tight."""
+        key = morton_key(t)
+        if moved is not None and prev_scoring is not None:
+            # Moved poses first, Morton order within each group.
+            key = key + torch.logical_not(moved).to(torch.int64) * (1 << 32)
+        order = torch.sort(key, stable=True).indices
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        gate = moved[order] if moved is not None and prev_scoring is not None else None
+        scores = _compute(p, t[order], q[order], gate)[inv]
+        if gate is None:
+            return scores
+        return torch.where(moved, scores, prev_scoring)
+
+    def kernel_args(p: BatchScoringParams, t, q, moved=None):
+        """(args, kwargs) of the ``dfire_pairs`` call that scores poses
+        (t, q) in the order given."""
+        g = t.shape[0]
+        rot = qt.rotation_matrix(q)
+        lig = rotate_translate(rot, p.lig_coords, t - center[None, :])  # (G, 3, Nl)
+        rec = (p.rec_coords - center[None, :])[None]                     # (1, Nr, 3)
+        if cull:
+            zeros = torch.zeros(g, dtype=t.dtype, device=t.device)
+            fine = cull_mask_boxes(rc, rh, lc, lh, t, rot, zeros, zeros, cuts)
+            # OR-reduce sub-boxes to kernel tiles.
+            bits = [a.reshape(n_r, rg, n_l, lg, g).amax(dim=(1, 3)) for a in fine]
+        else:
+            bits = [torch.ones((n_r, n_l, g), dtype=torch.int32,
+                               device=t.device)] * len(cuts)
+        if moved is not None:
+            bits = [b * moved.to(torch.int32)[None, None, :] for b in bits]
+        act, act_iface = bits[0], bits[1]
+        gp = -(-g // POSE_BLOCK) * POSE_BLOCK
+
+        def chunked(a):  # OR over each pose chunk
+            a = torch.nn.functional.pad(a, (0, gp - g))
+            return a.reshape(n_r, n_l, gp // POSE_BLOCK, POSE_BLOCK).amax(dim=-1)
+
+        near = chunked(bits[2]) if len(bits) > 2 else None
+        return ((rec, lig, tables, chunked(act), act_iface),
+                dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
+                     near_chunks=near))
+
+    def _compute(p: BatchScoringParams, t, q, moved):
+        args, kwargs = kernel_args(p, t, q, moved)
+        raw, ifr, ifl = dfire_pairs(*args, **kwargs)
+        score = finalize_raw(raw)
+        if ifr is None:
+            return score
+        return bias(p, score, ifr[:, :nr], ifl[:, :nl])
+
+    energy_fn.kernel_args = kernel_args
+    return energy_fn

@@ -1,0 +1,271 @@
+"""DFIRE pair kernel (K1): the Hopper kernel, its plain version, its tables.
+
+Port of ``lightdock_tpu/ops/pallas_energy.py`` ``dfire_pairs_pallas_v2``
+and the kernel it launches, ``_dfire_kernel_v2``.  The kernel source is
+``csrc/dfire_pairs.cu``; its header note says what bounds it on the card
+and what the design does about it.
+
+Contract (both versions): for poses ``lig_all`` (G, 3, Nl) and a rigid
+receptor ``rec_all`` (1, Nr, 3), both re-centred, return
+
+* ``raw`` (G,): sum over atom pairs with d2 <= 225 of the cumulative
+  DFIRE potential at the bin of d2, over the (receptor tile, ligand tile,
+  pose chunk) triples whose ``active_chunks`` bit is 1;
+* ``iface_rec`` (G, Nr_pad) and ``iface_lig`` (G, Nl_pad): 1.0 where the
+  atom has a partner within d2 <= 2.45^2, in tiles whose chunk is active
+  and has at least one pose with its ``iface_active`` bit set; or
+  ``None, None`` when ``need_iface`` is false.
+
+Padding is the reference's: poses are padded to the chunk at 1e6,
+receptor atoms at +1e6 and ligand atoms at -1e6 (their tables are zero).
+Near bits only shorten the kernel's bin search and skip interface work
+where no pair can be that close; values are unchanged, so the plain
+version ignores them.
+
+On a CPU tensor :func:`dfire_pairs` runs :func:`dfire_pairs_plain`; on a
+CUDA tensor it launches the kernel or raises.  There is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from lightdock_tpu import constants as C
+
+from . import _build
+from .tiling import dfire_far_split, dfire_live_channels
+
+POSE_BLOCK = 16     # poses per chunk (the kernel's kPoses)
+MAX_CHANNELS = 32   # bins per table row (one 128-byte line in f32)
+MAX_R_TILE = 128
+IFACE2 = ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2   # d <= 3.9 on 2*sqrt(d2)-1
+
+
+class DfireTables(NamedTuple):
+    """Per-complex tables of the kernel, built once on the device.
+
+    ``cum[i, tb, k]`` is the cumulative DFIRE potential of receptor atom i
+    against ligand type tb at live bin k: the prefix sum of the live
+    delta channels in ascending order, the addition order of the TPU
+    kernel's ``dq_scr``, so the values are bit-identical to it.  Column
+    ``tb == T`` is zero and serves untyped (padding) ligand atoms.
+    """
+
+    cum: torch.Tensor         # (Nr_pad, T + 1, MAX_CHANNELS)
+    lig_type: torch.Tensor    # (Nl_pad,) int32
+    thresholds: tuple         # live squared-distance thresholds, ascending
+    split: Optional[int]      # far/near boundary (live index) or None
+
+
+def dfire_tables(rec_half: torch.Tensor, lig_onehot: torch.Tensor,
+                 thresholds, r_tile: int, l_tile: int) -> DfireTables:
+    """Build :class:`DfireTables` from the type-factored tables
+    ``rec_half`` (K, Nr, T) and ``lig_onehot`` (T, Nl) of
+    ``energy_batch.dfire_type_tables``, padded to whole tiles."""
+    thresholds = tuple(float(x) for x in thresholds)
+    live = dfire_live_channels(thresholds)
+    if len(live) > MAX_CHANNELS:
+        raise ValueError(f"{len(live)} live DFIRE channels; at most "
+                         f"{MAX_CHANNELS} are supported")
+    split, _ = dfire_far_split(thresholds)
+    k, nr, n_types = rec_half.shape
+    nl = lig_onehot.shape[1]
+    nr_pad = -(-nr // r_tile) * r_tile
+    nl_pad = -(-nl // l_tile) * l_tile
+    cum = torch.zeros((nr_pad, n_types + 1, MAX_CHANNELS),
+                      dtype=rec_half.dtype, device=rec_half.device)
+    acc = rec_half[live[0]]
+    cum[:nr, :n_types, 0] = acc
+    for i in range(1, len(live)):
+        acc = acc + rec_half[live[i]]
+        cum[:nr, :n_types, i] = acc
+    typed = lig_onehot.sum(dim=0) > 0
+    types = torch.where(typed, lig_onehot.argmax(dim=0),
+                        torch.full_like(typed, n_types, dtype=torch.int64))
+    lig_type = F.pad(types, (0, nl_pad - nl), value=n_types).to(torch.int32)
+    return DfireTables(cum, lig_type,
+                       tuple(thresholds[c] for c in live), split)
+
+
+def _pad_inputs(rec_all, lig_all, iface_active, r_tile, l_tile):
+    """The reference's padding (``dfire_pairs_pallas_v2``): poses at 1e6,
+    receptor atoms at +1e6, ligand atoms at -1e6."""
+    g, _, nl = lig_all.shape
+    nr = rec_all.shape[1]
+    gp = -(-g // POSE_BLOCK) * POSE_BLOCK
+    lig = F.pad(lig_all, (0, 0, 0, 0, 0, gp - g), value=1e6)
+    lig = F.pad(lig, (0, -(-nl // l_tile) * l_tile - nl), value=-1e6)
+    rec = F.pad(rec_all, (0, 0, 0, -(-nr // r_tile) * r_tile - nr), value=1e6)
+    iface = F.pad(iface_active, (0, gp - g), value=0)
+    return rec, lig, iface
+
+
+def _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile):
+    if rec.dim() != 3 or rec.shape[0] != 1 or rec.shape[2] != 3:
+        raise NotImplementedError(
+            "per-pose receptors (receptor ANM) reach the DFIRE kernel in a "
+            f"later port; got rec_all {tuple(rec.shape)}")
+    if lig.dim() != 3 or lig.shape[1] != 3:
+        raise ValueError(f"lig_all must be (G, 3, Nl), got {tuple(lig.shape)}")
+    gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
+    n_r, n_l, n_chunks = nr_pad // r_tile, nl_pad // l_tile, gp // POSE_BLOCK
+    if tables.cum.shape[0] != nr_pad or tables.lig_type.shape[0] != nl_pad:
+        raise ValueError("tables were built for other tiles: cum "
+                         f"{tuple(tables.cum.shape)}, lig_type "
+                         f"{tuple(tables.lig_type.shape)}; atoms pad to "
+                         f"({nr_pad}, {nl_pad})")
+    if tuple(active_chunks.shape) != (n_r, n_l, n_chunks):
+        raise ValueError(f"active_chunks {tuple(active_chunks.shape)} != "
+                         f"{(n_r, n_l, n_chunks)}")
+    if near_chunks is not None and tuple(near_chunks.shape) != (n_r, n_l, n_chunks):
+        raise ValueError(f"near_chunks {tuple(near_chunks.shape)} != "
+                         f"{(n_r, n_l, n_chunks)}")
+    if tuple(iface.shape) != (n_r, n_l, gp):
+        raise ValueError(f"iface_active {tuple(iface.shape)} != "
+                         f"{(n_r, n_l, gp)}")
+
+
+def dfire_pairs_plain(rec_all, lig_all, tables: DfireTables, active_chunks,
+                      iface_active, *, r_tile: int, l_tile: int,
+                      need_iface: bool = True, near_chunks=None):
+    """Plain PyTorch version of the kernel's contract, one pose chunk at a
+    time (see the module docstring).  Any device, f32 or f64."""
+    g = lig_all.shape[0]
+    rec, lig, iface = _pad_inputs(rec_all, lig_all, iface_active,
+                                  r_tile, l_tile)
+    _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile)
+    gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
+    n_r, n_l = nr_pad // r_tile, nl_pad // l_tile
+    dev, dtype = lig.device, lig.dtype
+    t1, kp = tables.cum.shape[1], tables.cum.shape[2]
+    base = ((torch.arange(nr_pad, device=dev)[:, None] * t1
+             + tables.lig_type.to(torch.int64)[None, :]) * kp)   # (Nr, Nl)
+    cum = tables.cum.reshape(-1)
+    thr = tables.thresholds
+    r = rec[0]
+
+    def expand(bits):  # (n_r, n_l) -> (Nr_pad, Nl_pad)
+        return bits.repeat_interleave(r_tile, 0).repeat_interleave(l_tile, 1)
+
+    raw = torch.empty(gp, dtype=dtype, device=dev)
+    ifr = torch.zeros((gp, nr_pad), dtype=dtype, device=dev)
+    ifl = torch.zeros((gp, nl_pad), dtype=dtype, device=dev)
+    for c in range(gp // POSE_BLOCK):
+        sl = slice(c * POSE_BLOCK, (c + 1) * POSE_BLOCK)
+        lc = lig[sl]                                              # (P, 3, Nl)
+        dx = lc[:, None, 0, :] - r[None, :, 0, None]
+        dy = lc[:, None, 1, :] - r[None, :, 1, None]
+        dz = lc[:, None, 2, :] - r[None, :, 2, None]
+        d2 = dx * dx + dy * dy + dz * dz                          # (P, Nr, Nl)
+        gate = expand(active_chunks[:, :, c] != 0)
+        bins = torch.zeros(d2.shape, dtype=torch.int64, device=dev)
+        for k in range(1, len(thr)):
+            bins += d2 >= thr[k]
+        val = torch.take(cum, base[None] + bins)
+        contrib = torch.where((d2 <= C.DFIRE_DIST_CUTOFF2) & gate, val,
+                              torch.zeros_like(val))
+        tile_sums = contrib.reshape(POSE_BLOCK, n_r, r_tile, n_l, l_tile).sum(dim=(2, 4))
+        raw[sl] = tile_sums.reshape(POSE_BLOCK, n_r * n_l).sum(dim=1)
+        if need_iface:
+            any_iface = iface[:, :, sl].any(dim=-1)
+            close = (d2 <= IFACE2) & (gate & expand(any_iface))
+            ifr[sl] = close.any(dim=2).to(dtype)
+            ifl[sl] = close.any(dim=1).to(dtype)
+    if not need_iface:
+        return raw[:g], None, None
+    return raw[:g], ifr[:g], ifl[:g]
+
+
+def _bind(lib):
+    fn = lib.dfire_pairs_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                      ctypes.c_void_p])
+    return fn
+
+
+def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
+            l_tile, need_iface, near_chunks):
+    g = lig_all.shape[0]
+    if r_tile > MAX_R_TILE or l_tile > 256 or 256 % l_tile:
+        raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): r_tile <= "
+                         f"{MAX_R_TILE} and l_tile dividing 256")
+    for name, x in (("rec_all", rec_all), ("lig_all", lig_all),
+                    ("cum", tables.cum)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"the CUDA kernel takes float32; {name} is {x.dtype}")
+    tensors = [rec_all, lig_all, tables.cum, tables.lig_type, active_chunks,
+               iface_active] + ([near_chunks] if near_chunks is not None else [])
+    dev = lig_all.device
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"all inputs must be on {dev}; one is on {x.device}")
+    for x in (tables.lig_type, active_chunks, iface_active, near_chunks):
+        if x is not None and x.dtype != torch.int32:
+            raise TypeError(f"index and bit tensors must be int32, got {x.dtype}")
+    rec, lig, iface = _pad_inputs(rec_all, lig_all, iface_active,
+                                  r_tile, l_tile)
+    rec, lig, iface = rec.contiguous(), lig.contiguous(), iface.contiguous()
+    _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile)
+    if tables.split is None and near_chunks is not None:
+        raise ValueError("near bits need a far split in the tables")
+    act = active_chunks.contiguous()
+    near = near_chunks.contiguous() if near_chunks is not None else None
+    cum, lig_type = tables.cum.contiguous(), tables.lig_type.contiguous()
+    gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
+    n_tiles = (nr_pad // r_tile) * (nl_pad // l_tile)
+
+    partial = torch.empty((n_tiles, gp), dtype=torch.float32, device=dev)
+    raw = torch.empty(gp, dtype=torch.float32, device=dev)
+    if need_iface:
+        ifr = torch.zeros((gp, nr_pad), dtype=torch.float32, device=dev)
+        ifl = torch.zeros((gp, nl_pad), dtype=torch.float32, device=dev)
+    else:
+        ifr = ifl = None
+    thr = (ctypes.c_float * len(tables.thresholds))(*tables.thresholds)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    fn = _bind(_build.load("dfire_pairs").lib)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptr(rec), ptr(lig), ptr(cum), ptr(lig_type), ptr(act),
+                 ptr(iface), ptr(near), ptr(partial), ptr(raw), ptr(ifr),
+                 ptr(ifl), nr_pad, nl_pad, gp, r_tile, l_tile,
+                 cum.shape[1], cum.shape[2], thr, len(tables.thresholds),
+                 tables.split or 0, C.DFIRE_DIST_CUTOFF2, IFACE2, stream)
+    if err != 0:
+        raise RuntimeError(f"dfire_pairs kernel launch failed: CUDA error {err}")
+    dfire_pairs.launches += 1
+    if not need_iface:
+        return raw[:g], None, None
+    return raw[:g], ifr[:g], ifl[:g]
+
+
+def dfire_pairs(rec_all, lig_all, tables: DfireTables, active_chunks,
+                iface_active, *, r_tile: int, l_tile: int,
+                need_iface: bool = True, near_chunks=None):
+    """K1: raw DFIRE sums and interface flags (see the module docstring).
+
+    A CPU tensor takes :func:`dfire_pairs_plain`; a CUDA tensor launches
+    ``csrc/dfire_pairs.cu`` (float32 only) and adds one to
+    ``dfire_pairs.launches``; any other device raises."""
+    dev = lig_all.device.type
+    if dev == "cpu":
+        return dfire_pairs_plain(rec_all, lig_all, tables, active_chunks,
+                                 iface_active, r_tile=r_tile, l_tile=l_tile,
+                                 need_iface=need_iface, near_chunks=near_chunks)
+    if dev != "cuda":
+        raise ValueError(f"dfire_pairs runs on cpu or cuda, not {dev}")
+    return _launch(rec_all, lig_all, tables, active_chunks, iface_active,
+                   r_tile, l_tile, need_iface, near_chunks)
+
+
+dfire_pairs.launches = 0
