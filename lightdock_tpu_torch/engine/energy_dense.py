@@ -1,10 +1,12 @@
-"""Dense DFIRE energies over (G, Nr, Nl): the plain reference.
+"""Dense energies over (G, Nr, Nl): the plain reference.
 
 Port of ``lightdock_tpu/engine/energy_batch.py`` ``batch_pose_coords``,
 ``_pair_d2``, ``_dfire_parts`` (gather form), ``_dfire_parts_steps``,
-``finalize_raw``, ``_bias`` and ``batch_energy``, for DFIRE.  It keeps no
-kernel: it is the oracle the kernel path is checked against, on the CPU
-and on the card.  Elec/vdw (DNA, PYDOCK) arrives with their kernel.
+``_elec_vdw_parts``, ``finalize_raw``, ``_bias``, ``batch_energy`` and
+``batch_energy_parts``, and of the pose chunking of
+``lightdock_tpu/engine/gso_jax.py`` ``batch_energy_chunked``, for all three
+methods.  It keeps no kernel: it is the oracle the kernel path is checked
+against, on the CPU and on the card.
 
 ``params`` is a ``BatchScoringParams`` whose arrays are tensors
 (``engine.params.torch_params``).
@@ -35,16 +37,25 @@ def rotate_translate(rot, coords, t):
          + rot[:, a, 2, None] * z + t[:, a, None] for a in range(3)], dim=1)
 
 
+def mode_sum(a, nmodes):
+    """(G, N, 3) ANM displacement sum_k a[:, k] nmodes[k], added in mode
+    order as broadcast products (not an einsum), for the reason
+    :func:`rotate_translate` gives."""
+    out = a[:, 0, None, None] * nmodes[0]
+    for k in range(1, nmodes.shape[0]):
+        out = out + a[:, k, None, None] * nmodes[k]
+    return out
+
+
 def batch_pose_coords(p: BatchScoringParams, t, q, a_rec, a_lig):
     """Transformed coordinates: (rec (G, Nr, 3), lig (G, Nl, 3))."""
     rot = qt.rotation_matrix(q)
     lig = rotate_translate(rot, p.lig_coords, t).transpose(1, 2)
     if p.use_anm and p.lig_nmodes.shape[0] > 0:
-        lig = lig + torch.einsum("gk,knc->gnc", a_lig, p.lig_nmodes)
+        lig = lig + mode_sum(a_lig, p.lig_nmodes)
     rec = p.rec_coords[None].expand((t.shape[0],) + tuple(p.rec_coords.shape))
     if p.use_anm and p.rec_nmodes.shape[0] > 0:
-        rec = p.rec_coords[None] + torch.einsum("gk,knc->gnc", a_rec,
-                                                p.rec_nmodes)
+        rec = p.rec_coords[None] + mode_sum(a_rec, p.rec_nmodes)
     return rec, lig
 
 
@@ -54,9 +65,12 @@ def pair_d2(rec, lig):
     return d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
 
 
-def finalize_raw(raw):
-    """DFIRE's affine finish of the raw pair sum."""
-    return (raw * C.DFIRE_SCALE - C.DFIRE_OFFSET) * -1.0
+def finalize_raw(p: BatchScoringParams, raw):
+    """Affine finish of the raw pair sum: DFIRE's scale and offset, or the
+    sign flip of elec/vdw."""
+    if p.method == "dfire":
+        return (raw * C.DFIRE_SCALE - C.DFIRE_OFFSET) * -1.0
+    return raw * -1.0
 
 
 def bias(p: BatchScoringParams, score, iface_rec, iface_lig):
@@ -108,15 +122,51 @@ def dfire_parts_steps(p: BatchScoringParams, d2):
     return raw, close.any(dim=2).to(dtype), close.any(dim=1).to(dtype)
 
 
+def elec_vdw_parts(p: BatchScoringParams, d2):
+    """DNA/PYDOCK (raw, iface_rec, iface_lig).  Unguarded like the
+    reference: at d2 == 0 the elec term clamps and vdw goes NaN through
+    inf - inf, and both clamps propagate NaN."""
+    elec = (p.ele_rec[None, :, None] * p.ele_lig[None, None, :]) / d2
+    elec = torch.clamp(elec, C.ELEC_MIN_CUTOFF, C.ELEC_MAX_CUTOFF)
+    total_elec = torch.where(d2 <= C.ELEC_DIST_CUTOFF2, elec,
+                             torch.zeros_like(elec)).sum(dim=(1, 2))
+    vdw_energy = torch.sqrt(p.vdw_c_rec[None, :, None] * p.vdw_c_lig[None, None, :])
+    vdw_radius = p.vdw_r_rec[None, :, None] + p.vdw_r_lig[None, None, :]
+    p2 = vdw_radius * vdw_radius / d2
+    p6 = p2 * p2 * p2
+    k = torch.clamp(vdw_energy * (p6 * p6 - 2.0 * p6), max=C.VDW_CUTOFF)
+    total_vdw = torch.where(d2 <= C.VDW_DIST_CUTOFF2, k,
+                            torch.zeros_like(k)).sum(dim=(1, 2))
+    raw = total_elec * (C.FACTOR / C.EPSILON) + total_vdw
+    close = d2 <= C.INTERFACE_CUTOFF2
+    return raw, close.any(dim=2).to(d2.dtype), close.any(dim=1).to(d2.dtype)
+
+
+def batch_energy_parts(p: BatchScoringParams, t, q, a_rec, a_lig):
+    """(raw (G,), iface_rec (G, Nr), iface_lig (G, Nl)) before the affine
+    finish and the bias."""
+    d2 = pair_d2(*batch_pose_coords(p, t, q, a_rec, a_lig))
+    if p.method == "dfire":
+        return dfire_parts(p, d2)
+    return elec_vdw_parts(p, d2)
+
+
 def batch_energy(p: BatchScoringParams, t, q, a_rec, a_lig,
                  moved=None, prev_scoring=None):
-    """(G,) DFIRE scores.  ``moved``/``prev_scoring`` are accepted for the
+    """(G,) scores.  ``moved``/``prev_scoring`` are accepted for the
     energy_fn signature and ignored: recomputing an unmoved pose gives its
     stored score."""
-    if p.method != "dfire":
-        raise NotImplementedError(
-            f"the port scores DFIRE only; {p.method!r} arrives with the "
-            "elec/vdw kernel")
-    rec, lig = batch_pose_coords(p, t, q, a_rec, a_lig)
-    raw, ifr, ifl = dfire_parts(p, pair_d2(rec, lig))
-    return bias(p, finalize_raw(raw), ifr, ifl)
+    raw, ifr, ifl = batch_energy_parts(p, t, q, a_rec, a_lig)
+    return bias(p, finalize_raw(p, raw), ifr, ifl)
+
+
+def batch_energy_chunked(p: BatchScoringParams, t, q, a_rec, a_lig,
+                         chunk: int, moved=None, prev_scoring=None):
+    """:func:`batch_energy` over ``chunk`` poses at a time (all at once when
+    ``chunk`` <= 0), bounding the (chunk, Nr, Nl) temporaries."""
+    g = t.shape[0]
+    if chunk <= 0 or chunk >= g:
+        return batch_energy(p, t, q, a_rec, a_lig)
+    return torch.cat([batch_energy(p, t[i:i + chunk], q[i:i + chunk],
+                                   a_rec[i:i + chunk], a_lig[i:i + chunk])
+                      for i in range(0, g, chunk)])

@@ -1,12 +1,14 @@
-"""Kernel energy path: the per-step preparation around the DFIRE kernel.
+"""Kernel energy path: the per-step preparation around the pair kernels.
 
 Port of ``lightdock_tpu/engine/energy_pallas.py`` ``make_pallas_energy_fn``
-(its ``energy_fn`` and ``_compute``) for DFIRE with a rigid receptor:
-rotation, the re-centred ligand (G, 3, Nl), the box cull at the 15 A energy
-cutoff, the 2.45 A interface cutoff and the near cutoff, sub-box to tile
-coarsening, the OR over each pose chunk, the moved-first + Morton pose
-order and its inverse, the moved gate, then the kernel
-(``ops.dfire_pairs``), the affine finish and the restraint bias.
+(its ``energy_fn`` and ``_compute``) for all three methods, rigid or with
+ANM: rotation, the re-centred ligand (G, 3, Nl) with its ANM displacement,
+the receptor (1, Nr, 3), or (G, Nr, 3) with receptor ANM, the box cull
+with ANM slack at the method's energy, interface and near cutoffs, sub-box
+to tile coarsening, the OR over each pose chunk, the moved-first + Morton
+pose order and its inverse, the moved gate, then the kernel
+(``ops.dfire_pairs`` for DFIRE, ``ops.elec_vdw_pairs`` for DNA and
+PYDOCK), the affine finish and the restraint bias.
 
 The tile shape is the GPU's own (``ops.tiling.R_TILE`` x ``L_TILE``, 16
 poses a chunk); the TPU's tile picker and VMEM pose cap do not apply.
@@ -24,11 +26,13 @@ from lightdock_tpu.engine.energy_batch import (BatchScoringParams,
                                                ensure_dfire_types)
 
 from ..ops import quaternion as qt
-from ..ops.cull import cull_mask_boxes, morton_key
+from ..ops.cull import cull_mask_boxes, morton_key, pose_slack
 from ..ops.dfire_pairs import POSE_BLOCK, dfire_pairs, dfire_tables
-from ..ops.tiling import (L_TILE, R_TILE, cull_subsizes, pad_box_groups,
-                          rec_box_geometry, spatial_sort_params, tile_boxes)
-from .energy_dense import bias, finalize_raw, rotate_translate
+from ..ops.elec_vdw_pairs import elec_vdw_pairs
+from ..ops.tiling import (L_TILE, R_TILE, anm_mode_bounds, cull_subsizes,
+                          pad_box_groups, rec_box_geometry,
+                          spatial_sort_params, tile_boxes)
+from .energy_dense import bias, finalize_raw, mode_sum, rotate_translate
 
 
 def kernel_params(params: BatchScoringParams) -> BatchScoringParams:
@@ -53,22 +57,21 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
     """Build ``energy_fn(p, t, q, a_rec, a_lig, moved=None,
     prev_scoring=None) -> (G,)``.
 
-    ``params`` is the NumPy ``BatchScoringParams`` (spatially sorted, with
-    the type-indexed DFIRE tables of ``energy_batch.ensure_dfire_types``);
-    the cull boxes and the kernel's tables are built from it once, on
+    ``params`` is the NumPy ``BatchScoringParams`` (spatially sorted; for
+    DFIRE with the type-indexed tables of ``energy_batch.ensure_dfire_types``);
+    the cull boxes and the DFIRE kernel's tables are built from it once, on
     ``device`` at ``dtype``.  ``p``, given at each call, is the same
     complex as tensors (``engine.params.torch_params``).
     """
-    if params.method != "dfire":
+    dfire = params.method == "dfire"
+    rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
+    lig_anm = params.use_anm and params.lig_nmodes.shape[0] > 0
+    if dfire and rec_anm:
         raise NotImplementedError(
-            f"{params.method!r} scoring needs the elec/vdw kernel (K3), which "
-            "a later port brings")
-    if params.use_anm and (params.rec_nmodes.shape[0] > 0
-                           or params.lig_nmodes.shape[0] > 0):
-        raise NotImplementedError(
-            "ANM poses reach the kernel path in a later port (receptor ANM "
-            "in K1); run with use_anm=False")
-    if params.dfire_rec_half is None:
+            "DFIRE with receptor ANM needs per-pose receptors in the DFIRE "
+            "kernel (K1), which a later port brings; the DFIRE kernel path "
+            "takes ligand ANM only")
+    if dfire and params.dfire_rec_half is None:
         raise ValueError("the DFIRE kernel needs the type-indexed tables "
                          "(energy_batch.ensure_dfire_types)")
     r_tile, l_tile = R_TILE, L_TILE
@@ -90,15 +93,25 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
     def tensor(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-    tables = dfire_tables(tensor(params.dfire_rec_half),
-                          tensor(params.dfire_lig_onehot),
-                          np.asarray(params.dfire_thresholds, np.float64),
-                          r_tile, l_tile)
-    cuts = [15.0, (C.INTERFACE_CUTOFF + 1.0) / 2.0]
-    if tables.split is not None:
-        cuts.append(float(np.sqrt(tables.thresholds[tables.split])))
+    if dfire:
+        tables = dfire_tables(tensor(params.dfire_rec_half),
+                              tensor(params.dfire_lig_onehot),
+                              np.asarray(params.dfire_thresholds, np.float64),
+                              r_tile, l_tile)
+        # Energy, interface (d <= 3.9 on the scaled distance) and, where
+        # the tables have a far split, near cutoffs.
+        cuts = [15.0, (C.INTERFACE_CUTOFF + 1.0) / 2.0]
+        if tables.split is not None:
+            cuts.append(float(np.sqrt(tables.thresholds[tables.split])))
+    else:
+        # Elec reach, interface, and the vdw reach that splits near chunks
+        # from elec-only far ones.
+        cuts = [C.ELEC_DIST_CUTOFF, C.INTERFACE_CUTOFF, C.VDW_DIST_CUTOFF]
     rc, rh, lc, lh = tensor(rc), tensor(rh), tensor(lc), tensor(lh)
     center = tensor(frame_center(params))
+    # Per-mode displacement bounds widen the boxes by each pose's slack.
+    rec_bounds = tensor(anm_mode_bounds(params.rec_nmodes))
+    lig_bounds = tensor(anm_mode_bounds(params.lig_nmodes))
 
     def energy_fn(p: BatchScoringParams, t, q, a_rec, a_lig,
                   moved=None, prev_scoring=None):
@@ -114,21 +127,29 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         inv = torch.empty_like(order)
         inv[order] = torch.arange(order.shape[0], device=order.device)
         gate = moved[order] if moved is not None and prev_scoring is not None else None
-        scores = _compute(p, t[order], q[order], gate)[inv]
+        scores = _compute(p, t[order], q[order], a_rec[order], a_lig[order],
+                          gate)[inv]
         if gate is None:
             return scores
         return torch.where(moved, scores, prev_scoring)
 
-    def kernel_args(p: BatchScoringParams, t, q, moved=None):
-        """(args, kwargs) of the ``dfire_pairs`` call that scores poses
-        (t, q) in the order given."""
+    def kernel_args(p: BatchScoringParams, t, q, a_rec, a_lig, moved=None):
+        """(args, kwargs) of the kernel call (``dfire_pairs`` or
+        ``elec_vdw_pairs``) that scores poses (t, q, a_rec, a_lig) in the
+        order given."""
         g = t.shape[0]
         rot = qt.rotation_matrix(q)
         lig = rotate_translate(rot, p.lig_coords, t - center[None, :])  # (G, 3, Nl)
+        if lig_anm:
+            lig = lig + mode_sum(a_lig, p.lig_nmodes).transpose(1, 2)
         rec = (p.rec_coords - center[None, :])[None]                     # (1, Nr, 3)
+        if rec_anm:
+            rec = rec + mode_sum(a_rec, p.rec_nmodes)                    # (G, Nr, 3)
         if cull:
             zeros = torch.zeros(g, dtype=t.dtype, device=t.device)
-            fine = cull_mask_boxes(rc, rh, lc, lh, t, rot, zeros, zeros, cuts)
+            rs = pose_slack(a_rec, rec_bounds) if rec_anm else zeros
+            ls = pose_slack(a_lig, lig_bounds) if lig_anm else zeros
+            fine = cull_mask_boxes(rc, rh, lc, lh, t, rot, rs, ls, cuts)
             # OR-reduce sub-boxes to kernel tiles.
             bits = [a.reshape(n_r, rg, n_l, lg, g).amax(dim=(1, 3)) for a in fine]
         else:
@@ -144,14 +165,17 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
             return a.reshape(n_r, n_l, gp // POSE_BLOCK, POSE_BLOCK).amax(dim=-1)
 
         near = chunked(bits[2]) if len(bits) > 2 else None
-        return ((rec, lig, tables, chunked(act), act_iface),
-                dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
-                     near_chunks=near))
+        kwargs = dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
+                      near_chunks=near)
+        if dfire:
+            return (rec, lig, tables, chunked(act), act_iface), kwargs
+        return ((rec, lig, p.ele_rec, p.ele_lig, p.vdw_c_rec, p.vdw_c_lig,
+                 p.vdw_r_rec, p.vdw_r_lig, chunked(act), act_iface), kwargs)
 
-    def _compute(p: BatchScoringParams, t, q, moved):
-        args, kwargs = kernel_args(p, t, q, moved)
-        raw, ifr, ifl = dfire_pairs(*args, **kwargs)
-        score = finalize_raw(raw)
+    def _compute(p: BatchScoringParams, t, q, a_rec, a_lig, moved):
+        args, kwargs = kernel_args(p, t, q, a_rec, a_lig, moved)
+        raw, ifr, ifl = (dfire_pairs if dfire else elec_vdw_pairs)(*args, **kwargs)
+        score = finalize_raw(p, raw)
         if ifr is None:
             return score
         return bias(p, score, ifr[:, :nr], ifl[:, :nl])

@@ -4,9 +4,9 @@ Port of ``lightdock_tpu/engine/gso_jax.py`` ``GsoJaxRunner`` for the
 kernel path: the host-side rand-0.7 stream (reference RNG mode), ``run``,
 ``run_segmented``, ``reset``, ``load_snapshot`` from a ``.npz`` sidecar,
 and the ``gso_N.out`` snapshots with their sidecars through the shared
-``lightdock_tpu.utils.output``.  Energies go through
-``engine.energy_kernel`` (the CUDA kernel on a GPU, its plain version on
-the CPU).
+``lightdock_tpu.utils.output``, with ANM coefficients when ``use_anm``.
+Energies go through ``engine.energy_kernel`` (the method's CUDA kernel on
+a GPU, its plain version on the CPU).
 """
 
 from __future__ import annotations

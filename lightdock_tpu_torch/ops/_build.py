@@ -54,26 +54,49 @@ class BuiltLibrary:
 _loaded: dict[str, BuiltLibrary] = {}
 
 
-def load(name: str) -> BuiltLibrary:
-    """Compile ``csrc/<name>.cu`` if needed and load it (once a process)."""
-    if name in _loaded:
-        return _loaded[name]
+def _target(name: str):
     src = CSRC_DIR / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                          ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{key}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
-    _loaded[name] = built
-    return built
+    return src, BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def load_all(names) -> dict[str, BuiltLibrary]:
+    """Compile each ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one nvcc process per source, all started together, and load them (once
+    a process).  A failed build kills the others and raises."""
+    pending = {}
+    try:
+        for name in names:
+            if name in _loaded or name in pending:
+                continue
+            src, out = _target(name)
+            if out.exists():
+                pending[name] = (None, out, out, 0.0)
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            pending[name] = (proc, tmp, out, time.perf_counter())
+        for name, (proc, tmp, out, t0) in pending.items():
+            log, seconds = "", 0.0
+            if proc is not None:
+                log = proc.communicate(timeout=600)[0]
+                seconds = time.perf_counter() - t0  # until collected
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+                os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+            _loaded[name] = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+    finally:
+        for proc, *_ in pending.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: _loaded[name] for name in names}
+
+
+def load(name: str) -> BuiltLibrary:
+    """Compile ``csrc/<name>.cu`` if needed and load it (once a process)."""
+    return load_all([name])[name]

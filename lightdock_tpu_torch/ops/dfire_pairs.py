@@ -91,33 +91,26 @@ def dfire_tables(rec_half: torch.Tensor, lig_onehot: torch.Tensor,
                        tuple(thresholds[c] for c in live), split)
 
 
-def _pad_inputs(rec_all, lig_all, iface_active, r_tile, l_tile):
-    """The reference's padding (``dfire_pairs_pallas_v2``): poses at 1e6,
-    receptor atoms at +1e6, ligand atoms at -1e6."""
+def pad_inputs(rec_all, lig_all, iface_active, r_tile, l_tile):
+    """The reference's padding (``dfire_pairs_pallas_v2``,
+    ``elec_vdw_pairs_pallas_v2``): poses at 1e6 (a per-pose receptor
+    too), receptor atoms at +1e6, ligand atoms at -1e6."""
     g, _, nl = lig_all.shape
     nr = rec_all.shape[1]
     gp = -(-g // POSE_BLOCK) * POSE_BLOCK
     lig = F.pad(lig_all, (0, 0, 0, 0, 0, gp - g), value=1e6)
     lig = F.pad(lig, (0, -(-nl // l_tile) * l_tile - nl), value=-1e6)
-    rec = F.pad(rec_all, (0, 0, 0, -(-nr // r_tile) * r_tile - nr), value=1e6)
+    rec = rec_all
+    if rec.shape[0] != 1:
+        rec = F.pad(rec, (0, 0, 0, 0, 0, gp - rec.shape[0]), value=1e6)
+    rec = F.pad(rec, (0, 0, 0, -(-nr // r_tile) * r_tile - nr), value=1e6)
     iface = F.pad(iface_active, (0, gp - g), value=0)
     return rec, lig, iface
 
 
-def _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile):
-    if rec.dim() != 3 or rec.shape[0] != 1 or rec.shape[2] != 3:
-        raise NotImplementedError(
-            "per-pose receptors (receptor ANM) reach the DFIRE kernel in a "
-            f"later port; got rec_all {tuple(rec.shape)}")
-    if lig.dim() != 3 or lig.shape[1] != 3:
-        raise ValueError(f"lig_all must be (G, 3, Nl), got {tuple(lig.shape)}")
-    gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
-    n_r, n_l, n_chunks = nr_pad // r_tile, nl_pad // l_tile, gp // POSE_BLOCK
-    if tables.cum.shape[0] != nr_pad or tables.lig_type.shape[0] != nl_pad:
-        raise ValueError("tables were built for other tiles: cum "
-                         f"{tuple(tables.cum.shape)}, lig_type "
-                         f"{tuple(tables.lig_type.shape)}; atoms pad to "
-                         f"({nr_pad}, {nl_pad})")
+def check_bits(active_chunks, near_chunks, iface, n_r, n_l, gp):
+    """Shape checks of the cull bits shared by the pair kernels."""
+    n_chunks = gp // POSE_BLOCK
     if tuple(active_chunks.shape) != (n_r, n_l, n_chunks):
         raise ValueError(f"active_chunks {tuple(active_chunks.shape)} != "
                          f"{(n_r, n_l, n_chunks)}")
@@ -129,14 +122,31 @@ def _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile):
                          f"{(n_r, n_l, gp)}")
 
 
+def _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile):
+    if rec.dim() != 3 or rec.shape[0] != 1 or rec.shape[2] != 3:
+        raise NotImplementedError(
+            "per-pose receptors (receptor ANM) reach the DFIRE kernel in a "
+            f"later port; got rec_all {tuple(rec.shape)}")
+    if lig.dim() != 3 or lig.shape[1] != 3:
+        raise ValueError(f"lig_all must be (G, 3, Nl), got {tuple(lig.shape)}")
+    gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
+    n_r, n_l = nr_pad // r_tile, nl_pad // l_tile
+    if tables.cum.shape[0] != nr_pad or tables.lig_type.shape[0] != nl_pad:
+        raise ValueError("tables were built for other tiles: cum "
+                         f"{tuple(tables.cum.shape)}, lig_type "
+                         f"{tuple(tables.lig_type.shape)}; atoms pad to "
+                         f"({nr_pad}, {nl_pad})")
+    check_bits(active_chunks, near_chunks, iface, n_r, n_l, gp)
+
+
 def dfire_pairs_plain(rec_all, lig_all, tables: DfireTables, active_chunks,
                       iface_active, *, r_tile: int, l_tile: int,
                       need_iface: bool = True, near_chunks=None):
     """Plain PyTorch version of the kernel's contract, one pose chunk at a
     time (see the module docstring).  Any device, f32 or f64."""
     g = lig_all.shape[0]
-    rec, lig, iface = _pad_inputs(rec_all, lig_all, iface_active,
-                                  r_tile, l_tile)
+    rec, lig, iface = pad_inputs(rec_all, lig_all, iface_active,
+                                 r_tile, l_tile)
     _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile)
     gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
     n_r, n_l = nr_pad // r_tile, nl_pad // l_tile
@@ -209,8 +219,8 @@ def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
     for x in (tables.lig_type, active_chunks, iface_active, near_chunks):
         if x is not None and x.dtype != torch.int32:
             raise TypeError(f"index and bit tensors must be int32, got {x.dtype}")
-    rec, lig, iface = _pad_inputs(rec_all, lig_all, iface_active,
-                                  r_tile, l_tile)
+    rec, lig, iface = pad_inputs(rec_all, lig_all, iface_active,
+                                 r_tile, l_tile)
     rec, lig, iface = rec.contiguous(), lig.contiguous(), iface.contiguous()
     _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile)
     if tables.split is None and near_chunks is not None:

@@ -1,4 +1,5 @@
-"""The hand-written CUDA DFIRE kernel against its plain version, on the card.
+"""The hand-written CUDA kernels (DFIRE K1, elec/vdw K3) against their plain
+versions, and the energy path on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports no JAX, so it
 runs where the JAX package is not installed:
@@ -16,6 +17,7 @@ from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     kernel_params, make_kernel_energy_fn)
 from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
+from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -27,11 +29,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _clustered_kernel_args(dev, g, seed=2):
+def _clustered_kernel_args(dev, g, seed=2, method="dfire", num_anm=0):
     """The kernel's inputs for ``g`` poses clustered by chunk, so that some
     chunk-tiles are far: near bits come from the energy path's own box
-    cull (truthful), cull and interface bits are seeded at random."""
-    params, pos, _ = _toy_system(300, 170, g, seed=seed)
+    cull (truthful), cull and interface bits are seeded at random.  With
+    ``num_anm`` > 0 the receptor is per pose (receptor ANM)."""
+    params, pos, _ = _toy_system(300, 170, g, num_anm=num_anm, seed=seed,
+                                 method=method)
     params = kernel_params(params)
     fn = make_kernel_energy_fn(params, dev, torch.float32)
     tp = torch_params(params, dev, torch.float32)
@@ -39,13 +43,16 @@ def _clustered_kernel_args(dev, g, seed=2):
     n_c = -(-g // dp.POSE_BLOCK)
     t = (np.repeat(rng.uniform(-45, 45, (n_c, 3)), dp.POSE_BLOCK, axis=0)[:g]
          + rng.uniform(-3, 3, (g, 3)))
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
     args, kwargs = fn.kernel_args(
-        tp, torch.as_tensor(t, dtype=torch.float32, device=dev),
-        torch.as_tensor(pos[:, 3:7], dtype=torch.float32, device=dev))
-    rec, lig, tables, act, iface = args
-    act = torch.as_tensor((rng.rand(*act.shape) < 0.8).astype(np.int32), device=dev)
-    iface = torch.as_tensor((rng.rand(*iface.shape) < 0.5).astype(np.int32), device=dev)
-    return (rec, lig, tables, act, iface), kwargs
+        tp, tensor(t), tensor(pos[:, 3:7]), tensor(pos[:, 7:7 + num_anm]),
+        tensor(pos[:, 7 + num_anm:]))
+    act = torch.as_tensor((rng.rand(*args[-2].shape) < 0.8).astype(np.int32), device=dev)
+    iface = torch.as_tensor((rng.rand(*args[-1].shape) < 0.5).astype(np.int32), device=dev)
+    return args[:-2] + (act, iface), kwargs
 
 
 @pytest.mark.parametrize("g", [37, 200])
@@ -82,4 +89,67 @@ def test_energy_fn_on_card_matches_cpu(cuda):
         tp = torch_params(params, dev, torch.float32)
         out[str(dev)] = fn(tp, *(torch.as_tensor(x, dtype=torch.float32,
                                                  device=dev) for x in pose))
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("g", [37, 200])
+@pytest.mark.parametrize("num_anm", [0, 2])
+@pytest.mark.parametrize("with_near", [False, True])
+@pytest.mark.parametrize("need_iface", [True, False])
+def test_elec_vdw_kernel_matches_plain(cuda, g, num_anm, with_near, need_iface):
+    args, kwargs = _clustered_kernel_args(cuda, g, method="dna", num_anm=num_anm)
+    assert args[0].shape[0] == (g if num_anm else 1)   # per-pose receptor with ANM
+    near = kwargs["near_chunks"]
+    assert 0 < int(near.sum()) < near.numel()      # some chunk-tiles are far
+    kw = dict(r_tile=kwargs["r_tile"], l_tile=kwargs["l_tile"],
+              need_iface=need_iface, near_chunks=near if with_near else None)
+    before = ev.elec_vdw_pairs.launches
+    out = ev.elec_vdw_pairs(*args, **kw)
+    torch.cuda.synchronize()
+    assert ev.elec_vdw_pairs.launches == before + 1
+    ref = ev.elec_vdw_pairs_plain(*args, **kw)
+    assert bool(torch.isfinite(out[0]).all())
+    torch.testing.assert_close(out[0], ref[0], rtol=5e-5, atol=5e-5)
+    if need_iface:
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+        assert out[1].sum() > 0 and out[2].sum() > 0
+    else:
+        assert out[1] is None and out[2] is None
+    again = ev.elec_vdw_pairs(*args, **kw)
+    assert torch.equal(again[0], out[0])          # deterministic sums
+
+
+@pytest.mark.parametrize("lig_x,nan", [(1e-2, False), (0.0, True)])
+def test_elec_vdw_kernel_coincident_pair(cuda, lig_x, nan):
+    """d2 -> 0 clamps; d2 == 0 is NaN in the kernel as in its plain
+    version (the clamps must not be fminf/fmaxf)."""
+    def vec(v):
+        return torch.full((1,), v, dtype=torch.float32, device=cuda)
+
+    rec = torch.zeros((1, 1, 3), dtype=torch.float32, device=cuda)
+    lig = torch.tensor([[[lig_x], [0.0], [0.0]]], dtype=torch.float32, device=cuda)
+    ones = torch.ones((1, 1, 1), dtype=torch.int32, device=cuda)
+    args = (rec, lig, vec(0.5), vec(0.5), vec(0.2), vec(0.2), vec(1.5), vec(1.5),
+            ones, ones)
+    out = ev.elec_vdw_pairs(*args, r_tile=32, l_tile=128)
+    ref = ev.elec_vdw_pairs_plain(*args, r_tile=32, l_tile=128)
+    if nan:
+        assert torch.isnan(out[0]).all() and torch.isnan(ref[0]).all()
+    else:
+        torch.testing.assert_close(out[0], ref[0], rtol=0, atol=0)
+        assert torch.isfinite(out[0]).all()
+    assert torch.equal(out[1], ref[1]) and out[1].sum() == 1
+
+
+def test_dna_anm_energy_fn_on_card_matches_cpu(cuda):
+    params, pos, _ = _toy_system(300, 170, 37, num_anm=2, seed=4, method="dna")
+    params = kernel_params(params)
+    pose = [pos[:, :3], pos[:, 3:7], pos[:, 7:9], pos[:, 9:11]]
+    out = {}
+    for dev in ("cpu", cuda):
+        fn = make_kernel_energy_fn(params, dev, torch.float32)
+        tp = torch_params(params, dev, torch.float32)
+        out[str(dev)] = fn(tp, *(torch.as_tensor(x, dtype=torch.float32,
+                                                 device=dev) for x in pose))
+    assert torch.isfinite(out["cuda"]).all()
     torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-5, atol=5e-5)

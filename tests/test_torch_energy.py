@@ -8,6 +8,8 @@ f32 tolerances are the v2 kernel tests' (tests/test_pallas.py): rtol and
 atol 5e-5, for the f32 summation order; interface flags are exact.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from lightdock_tpu.engine.energy_pallas import make_pallas_energy_fn  # noqa: E4
 from lightdock_tpu.engine.gso_jax import device_params  # noqa: E402
 from lightdock_tpu.ops import pallas_energy as pe  # noqa: E402
 from lightdock_tpu.ops import quaternion as jqt  # noqa: E402
+from lightdock_tpu.scoring import tables as score_tables  # noqa: E402
 from lightdock_tpu.scoring.models import DockingModel  # noqa: E402
 from lightdock_tpu.scoring.potentials import synthetic_potential  # noqa: E402
 from lightdock_tpu_torch.engine import energy_dense as ed  # noqa: E402
@@ -252,10 +255,50 @@ def test_kernel_path_refuses_what_it_does_not_run():
     params = ensure_dfire_types(params)
     import dataclasses
     anm = dataclasses.replace(params, use_anm=True,
-                              lig_nmodes=np.ones((2, 170, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="ANM"):
+                              rec_nmodes=np.ones((2, 300, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="receptor ANM"):
         make_kernel_energy_fn(anm, "cpu")
     with pytest.raises(ValueError, match="cpu or cuda"):
         dp.dfire_pairs(torch.zeros(1, 8, 3, device="meta"),
                        torch.zeros(2, 3, 8, device="meta"), None, None, None,
                        r_tile=32, l_tile=128)
+
+
+@pytest.mark.parametrize("dfire_mode", ["gather", "steps"])
+def test_dfire_binning_micro_oracle(dfire_mode):
+    """The dense DFIRE oracle, gather and step forms, vs a literal per-pair
+    loop translation of the reference hot loop (src/dfire.rs:325-347) at
+    f64 (port of tests/test_energy.py::test_dfire_binning_micro_oracle):
+    the `d as usize` truncation, the DIST_TO_BINS lookup and the bin spill
+    past the 20-entry stride."""
+    rng = np.random.RandomState(42)
+
+    def model(n):
+        return DockingModel(
+            method="dfire", coordinates=rng.uniform(-12, 12, size=(n, 3)),
+            num_anm=0, nmodes=np.zeros((0, n, 3)),
+            membrane=np.zeros(0, dtype=np.int64), active_restraints={},
+            passive_restraints={},
+            atom_types=rng.randint(0, 168, size=n).astype(np.int32))
+
+    rec, lig = model(23), model(31)
+    pot = synthetic_potential()
+    d2b = score_tables.dfire_tables()["dist_to_bins"]
+    params = build_batch_params(rec, lig, use_anm=False, dtype=np.float64,
+                                potential=pot, dfire_mode=dfire_mode)
+    one = dict(dtype=torch.float64)
+    zeros = torch.zeros((1, 0), **one)
+    fast = float(ed.batch_energy(torch_params(params, "cpu", torch.float64),
+                                 torch.zeros((1, 3), **one),
+                                 torch.tensor([[1.0, 0, 0, 0]], **one),
+                                 zeros, zeros)[0])
+    score = 0.0
+    for i in range(rec.num_atoms):
+        for j in range(lig.num_atoms):
+            diff = rec.coordinates[i] - lig.coordinates[j]
+            dist2 = float(diff @ diff)
+            if dist2 <= 225.0:
+                d = math.sqrt(dist2) * 2.0 - 1.0
+                bin_ = d2b[max(0, int(d))] - 1
+                score += pot[rec.atom_types[i] * 169 * 20 + lig.atom_types[j] * 20 + bin_]
+    assert fast == pytest.approx((score * 0.0157 - 4.7) * -1.0, rel=1e-12)

@@ -17,7 +17,9 @@ PORT_MODULES = [
     "lightdock_tpu_torch.ops.quaternion",
     "lightdock_tpu_torch.ops.tiling",
     "lightdock_tpu_torch.ops.cull",
+    "lightdock_tpu_torch.ops._build",
     "lightdock_tpu_torch.ops.dfire_pairs",
+    "lightdock_tpu_torch.ops.elec_vdw_pairs",
     "lightdock_tpu_torch.engine.params",
     "lightdock_tpu_torch.engine.energy_dense",
     "lightdock_tpu_torch.engine.energy_kernel",

@@ -15,26 +15,35 @@ from lightdock_tpu_torch.engine.gso import SwarmState  # noqa: E402
 from lightdock_tpu_torch.engine.runner import GsoTorchRunner  # noqa: E402
 
 
-def _toy(seed, n_rec=40, n_lig=26, g=24, dtype=np.float64):
-    """A small rigid DFIRE system with restraints on both sides, so the
-    interface flags and the bias are exercised."""
+def _toy(seed, n_rec=40, n_lig=26, g=24, dtype=np.float64, method="dfire",
+         num_anm=0):
+    """A small system with restraints on both sides, so the interface
+    flags and the bias are exercised; DNA systems carry random charges,
+    vdw energies and radii, and ``num_anm`` modes on each side."""
     rng = np.random.RandomState(seed)
 
     def model(n):
+        if method == "dfire":
+            kw = dict(atom_types=rng.randint(0, 168, size=n).astype(np.int32))
+        else:
+            kw = dict(ele_charges=rng.uniform(-1, 1, n),
+                      vdw_charges=rng.uniform(0, 0.5, n),
+                      vdw_radii=rng.uniform(0.5, 2.5, n))
         return DockingModel(
-            method="dfire", coordinates=rng.uniform(-8, 8, size=(n, 3)),
-            num_anm=0, nmodes=np.zeros((0, n, 3)),
+            method=method, coordinates=rng.uniform(-8, 8, size=(n, 3)),
+            num_anm=num_anm, nmodes=rng.standard_normal((num_anm, n, 3)) * 0.1,
             membrane=np.zeros(0, dtype=np.int64),
             active_restraints={"A.1": [0, 1, 2], "A.2": [5, 6]},
-            passive_restraints={},
-            atom_types=rng.randint(0, 168, size=n).astype(np.int32))
+            passive_restraints={}, **kw)
 
-    params = build_batch_params(model(n_rec), model(n_lig), use_anm=False,
-                                dtype=dtype, potential=synthetic_potential())
+    params = build_batch_params(
+        model(n_rec), model(n_lig), use_anm=num_anm > 0, dtype=dtype,
+        potential=synthetic_potential() if method == "dfire" else None)
     t = rng.uniform(-10, 10, size=(g, 3))
     q = rng.standard_normal((g, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    return params, np.concatenate([t, q], axis=1)
+    a = rng.uniform(-1, 1, size=(g, 2 * num_anm))
+    return params, np.concatenate([t, q, a], axis=1)
 
 
 def test_runner_matches_jax_runner_text(tmp_path):
@@ -75,6 +84,42 @@ def test_run_segmented_matches_run(tmp_path):
     again, _ = mono.run(20)
     for a, b in zip(again, mono_final):
         assert torch.equal(a, b)
+
+
+def test_runner_matches_jax_runner_text_dna_anm(tmp_path):
+    """f64 on CPU, DNA scoring with two ANM modes on each side: the port
+    renders gso_1.out and gso_10.out text-identical to GsoJaxRunner on the
+    XLA path, ANM columns included."""
+    params, pos = _toy(12, method="dna", num_anm=2)
+    ref = GsoJaxRunner(params, pos, seed=324324, use_anm=True, anm_rec=2,
+                       anm_lig=2, output_directory=str(tmp_path / "jax"),
+                       dtype=jnp.float64, energy_mode="xla")
+    ref.run(10)
+    port = GsoTorchRunner(params, pos, seed=324324, use_anm=True, anm_rec=2,
+                          anm_lig=2, output_directory=str(tmp_path / "torch"),
+                          dtype=torch.float64, device="cpu")
+    final, outs = port.run(10)
+    assert outs.a_rec.shape == (10, 24, 2) and outs.a_lig.shape == (10, 24, 2)
+    assert not torch.equal(final.a_rec, torch.as_tensor(pos[:, 7:9]))  # modes moved
+    for step in (1, 10):
+        a = (tmp_path / "jax" / f"gso_{step}.out").read_text()
+        b = (tmp_path / "torch" / f"gso_{step}.out").read_text()
+        assert len(a.splitlines()[1].split()) == len(b.splitlines()[1].split())
+        assert a == b, f"gso_{step}.out differs"
+
+
+def test_sidecar_resume_is_bit_exact_dna_anm(tmp_path):
+    params, pos = _toy(6, dtype=np.float32, method="pydock", num_anm=2)
+    kw = dict(seed=4, use_anm=True, anm_rec=2, anm_lig=2)
+    full = GsoTorchRunner(params, pos, output_directory=str(tmp_path / "full"), **kw)
+    full_final, _ = full.run(20)
+    resumed = GsoTorchRunner(params, pos, output_directory=str(tmp_path / "res"), **kw)
+    resumed.load_snapshot(tmp_path / "full" / "gso_10.out")
+    res_final, _ = resumed.run(20)
+    for name, a, b in zip(SwarmState._fields, res_final, full_final):
+        assert torch.equal(a, b), name
+    assert ((tmp_path / "full" / "gso_20.out").read_text()
+            == (tmp_path / "res" / "gso_20.out").read_text())
 
 
 def test_sidecar_resume_is_bit_exact(tmp_path):
