@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``lightdock_tpu_torch/csrc`` with nvcc (one
-process per source, all at once), then drives two paths:
+process per source, all at once), then drives three paths, each on a
+stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions and the kernel build times;
@@ -36,7 +37,30 @@ process per source, all at once), then drives two paths:
    restraint bias on) through ``run_segmented(100, 10)``: finite scores,
    one K3 launch per step, the snapshots with their ANM columns, and the
    step-1 scores against the pose-chunked dense oracle (5e-5);
-8. phases 4 and 5 for the DNA + ANM path and K3.
+8. phases 4 and 5 for the DNA + ANM path and K3;
+9. holds K1 with a per-pose receptor against its plain version on the
+   1ppe-shaped DFIRE system with 10 + 10 ANM modes (the cases of phase 2),
+   then runs 30 GSO steps of that DFIRE + ANM path: finite scores, one K1
+   launch a step, 27 pose columns, step-1 scores against the dense oracle;
+10. holds the work-list DFIRE kernel (K2) against its plain version at the
+    1k4c shapes (3413 x 3268 atoms; the cases of phase 2), against K1 on
+    the same inputs, with every pose unmoved (an empty list: zero sums, no
+    flags, and the energy path returns the stored scores exactly), and
+    with a per-pose receptor at the 1ppe shape;
+11. runs the 1k4c-shaped DFIRE membrane path: ``GsoTorchRunner`` for 100
+    steps (200 glowworms next to the receptor's membrane face, rigid, f32)
+    through ``run_segmented(100, 10)``: the active share of tile pairs at
+    step 1 (0 < n_active < n_r n_l), one K2 launch and no K1 launch a
+    step, the snapshots, finite scores, and the step-1 scores against the
+    pose-chunked gather-form dense oracle (5e-5);
+12. times K2 at G = 200 (CUDA events), its compaction, pair and second
+    passes alone (torch.profiler), K1 on the same inputs, K1 with the
+    per-pose receptor of phase 9, the plain version, and phases 4 and 5
+    for the 1k4c path.
+
+Every kernel's bound (the least time the card could take for the same
+work: the larger of its bytes over 3.35 TB/s and its f32 operations over
+67 TFLOP/s) is computed from the inputs of its timed call.
 
 Fails with a non-zero exit and no result line when there is no CUDA
 device, when it is not run from a checkout, or when any check fails.  The
@@ -59,8 +83,17 @@ ROOT = pathlib.Path(__file__).resolve().parent
 N_POSES, STEPS, SEGMENT, SEED = 200, 100, 10, 324324
 DFIRE_ATOMS = (1615, 221)          # 1ppe-shaped stand-in
 DNA_ATOMS, DNA_ANM = (1094, 506), 10   # 1azp-shaped stand-in, 10 + 10 modes
+ANM_STEPS = 30                     # depth of the DFIRE + ANM run (phase 9)
 ORACLE_CHUNK = 16                  # poses per dense-oracle chunk
 RTOL = ATOL = 5e-5
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s outside
+# the tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# f32 operations per pair-pose in an active chunk-tile: d2 is 3 sub, 3 mul
+# and 2 add; DFIRE adds the accumulate; elec/vdw adds the reciprocal, the
+# elec product, mask and scale, then on near chunks the p^6 chain, the vdw
+# product and mask and the term add, and the accumulate.
+FLOPS_DFIRE, FLOPS_EV_NEAR, FLOPS_EV_FAR = 9, 22, 13
 
 
 def fail(msg: str) -> None:
@@ -101,27 +134,35 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 class KernelPath:
-    """One configuration the smoke run drives: its system, its kernel (with
-    the plain version and the launch counter), and the energy path built
-    for it on the card."""
+    """One configuration the smoke run drives: its system, the energy path
+    built for it on the card, and the kernel that path chose (with its
+    plain version, launch counter and device kernel names)."""
 
-    def __init__(self, label, kernel, plain, kernel_names, n_rec, n_lig,
-                 num_anm=0, method="dfire"):
+    def __init__(self, label, system):
         import torch
 
-        from __graft_entry__ import _toy_system
         from lightdock_tpu_torch.engine.energy_kernel import (
             kernel_params, make_kernel_energy_fn)
         from lightdock_tpu_torch.engine.params import torch_params
+        from lightdock_tpu_torch.ops import dfire_pairs as dp
+        from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
 
-        self.label, self.kernel, self.plain = label, kernel, plain
-        self.kernel_names = kernel_names
-        self.num_anm = num_anm
-        self.params, self.pos, _ = _toy_system(n_rec, n_lig, N_POSES,
-                                               num_anm=num_anm, method=method)
+        self.label = label
+        self.params, self.pos, self.num_anm = system
         kparams = kernel_params(self.params)
         self.tp = torch_params(kparams, "cuda", torch.float32)
         self.energy_fn = make_kernel_energy_fn(kparams, "cuda", torch.float32)
+        self.kernel = self.energy_fn.kernel
+        self.plain, self.kernel_names = {
+            dp.dfire_pairs: (dp.dfire_pairs_plain,
+                             ("dfire_pairs_kernel", "sum_rows_kernel")),
+            dp.dfire_pairs_worklist: (dp.dfire_pairs_worklist_plain,
+                                      ("compact_tiles_kernel",
+                                       "dfire_pairs_worklist_kernel",
+                                       "sum_rows_kernel")),
+            ev.elec_vdw_pairs: (ev.elec_vdw_pairs_plain,
+                                ("elec_vdw_pairs_kernel", "sum_tiles_kernel")),
+        }[self.kernel]
 
     def pose(self, n, t=None):
         """(t, q, a_rec, a_lig) of the first ``n`` poses on the card."""
@@ -141,14 +182,17 @@ class KernelPath:
                               dtype=torch.float32, device="cuda")
 
 
-def compare(path, args, kwargs, phase, label):
-    """Kernel against plain on the same inputs; returns the max |raw diff|."""
+def compare(path, args, kwargs, phase, label, kernel=None, plain=None):
+    """A kernel (the path's by default) against plain on the same inputs;
+    returns the max |raw diff|."""
     import torch
-    before = path.kernel.launches
-    out = path.kernel(*args, **kwargs)
+    kernel = kernel or path.kernel
+    plain = plain or path.plain
+    before = kernel.launches
+    out = kernel(*args, **kwargs)
     torch.cuda.synchronize()
-    check(path.kernel.launches == before + 1, f"{path.label}: kernel did not launch")
-    ref = path.plain(*args, **kwargs)
+    check(kernel.launches == before + 1, f"{path.label}: {kernel.__name__} did not launch")
+    ref = plain(*args, **kwargs)
     n = args[1].shape[0]
     check(out[0].shape == (n,) and bool(torch.isfinite(out[0]).all()),
           f"{path.label}: kernel raw sums not finite / shaped ({label})")
@@ -162,28 +206,31 @@ def compare(path, args, kwargs, phase, label):
         flags = out[1] is None and out[2] is None
         note = f"no flags returned {flags}"
     act, near = args[-2], kwargs["near_chunks"]
-    say(f"phase {phase}: {path.label} {label}: max|raw diff| {err:.3e} "
-        f"(allclose {close}), {note}, active chunk-tiles "
-        f"{int(act.sum())}/{act.numel()}, near {int((near * act).sum())}")
+    near_n = int((near * act).sum()) if near is not None else "-"
+    say(f"phase {phase}: {path.label} {kernel.__name__} {label}: max|raw diff| "
+        f"{err:.3e} (allclose {close}), {note}, active chunk-tiles "
+        f"{int(act.sum())}/{act.numel()}, near {near_n}")
     check(close, f"{path.label}: kernel raw sums disagree with plain ({label})")
     check(flags, f"{path.label}: interface flags disagree with plain ({label})")
     return err
 
 
-def kernel_cases(path, phase, gen, rng):
-    """The kernel against plain at the path's shapes (G=200 and 37, with
-    and without the moved gate) and on clustered poses with far
-    chunk-tiles (with and without interface flags).  Returns the max
-    error and the ungated G=200 call."""
+def kernel_cases(path, phase, gen, rng, kernel=None, plain=None):
+    """A kernel against plain at the path's shapes (G=200 and 37, with and
+    without the moved gate) and on clustered poses with far chunk-tiles
+    (with and without interface flags); two launches must be bit-equal.
+    Returns the max error and the ungated G=200 call."""
     import numpy as np
     import torch
 
+    kernel = kernel or path.kernel
     max_err, main = 0.0, None
     for n in (N_POSES, 37):
         for gated in (False, True):
             moved = (torch.rand(n, generator=gen, device="cuda") < 0.6) if gated else None
             args, kwargs = path.energy_fn.kernel_args(path.tp, *path.pose(n), moved)
-            err = compare(path, args, kwargs, phase, f"G={n} moved_gate={gated}")
+            err = compare(path, args, kwargs, phase, f"G={n} moved_gate={gated}",
+                          kernel, plain)
             max_err = max(max_err, err)
             if n == N_POSES and not gated:
                 main = (args, kwargs)
@@ -201,42 +248,43 @@ def kernel_cases(path, phase, gen, rng):
           f"{n_act} active chunk-tiles near; the far branch is not exercised")
     for need_iface in (True, False):
         err = compare(path, args, dict(kwargs, need_iface=need_iface), phase,
-                         f"G={N_POSES} clustered need_iface={need_iface}")
+                      f"G={N_POSES} clustered need_iface={need_iface}", kernel, plain)
         max_err = max(max_err, err)
-    again = path.kernel(*main[0], **main[1])
-    first = path.kernel(*main[0], **main[1])
+    again = kernel(*main[0], **main[1])
+    first = kernel(*main[0], **main[1])
     check(torch.equal(again[0], first[0]), f"{path.label}: sums differ between runs")
     return max_err, main
 
 
-def drive(path, counters, phase):
-    """The path's main run: 100 steps through ``run_segmented`` with every
-    kernel count set to 0 just before and read just after.  Returns the
-    path kernel's launches and the step-1 scores from the gso_1 sidecar."""
+def drive(path, counters, phase, steps=STEPS):
+    """The path's main run: ``steps`` steps through ``run_segmented`` with
+    every kernel count set to 0 just before and read just after.  Returns
+    the path kernel's launches and the step-1 scores from the gso_1
+    sidecar."""
     import numpy as np
     import torch
 
-    expected = {f"gso_{s}.out" for s in [1] + list(range(10, STEPS + 1, 10))}
+    expected = {f"gso_{s}.out" for s in [1] + list(range(10, steps + 1, 10))}
     with tempfile.TemporaryDirectory() as out_dir:
         runner = path.runner(out_dir)
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
-        final, _ = runner.run_segmented(STEPS, SEGMENT)
+        final, _ = runner.run_segmented(steps, SEGMENT)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
         snaps = {p.name for p in pathlib.Path(out_dir).glob("gso_*.out")}
         with np.load(pathlib.Path(out_dir) / "gso_1.out.npz") as sidecar:
             step1 = sidecar["scoring"]
-        line = (pathlib.Path(out_dir) / f"gso_{STEPS}.out").read_text().splitlines()[1]
+        line = (pathlib.Path(out_dir) / f"gso_{steps}.out").read_text().splitlines()[1]
         cols = len(line[line.index("(") + 1:line.index(")")].split(","))
     ours = launches[path.kernel.__name__]
-    say(f"phase {phase}: {path.label}: {STEPS} steps in {run_s:.3f} s (first run, "
+    say(f"phase {phase}: {path.label}: {steps} steps in {run_s:.3f} s (first run, "
         f"with snapshots); kernel launches {launches}; snapshots {len(snaps)} "
         f"with {cols} pose columns; final scores min {float(final.scoring.min()):.6f} "
         f"max {float(final.scoring.max()):.6f}")
-    check(ours == STEPS, f"{path.label}: {ours} kernel launches in {STEPS} steps")
+    check(ours == steps, f"{path.label}: {ours} kernel launches in {steps} steps")
     check(sum(launches.values()) == ours, f"{path.label}: other kernels launched")
     check(snaps == expected, f"{path.label}: snapshots {sorted(snaps)}")
     # t, q, then the receptor's and the ligand's ANM coefficients
@@ -271,10 +319,31 @@ def oracle(path, step1, phase):
     got = torch.as_tensor(step1, device="cuda")
     err = float((got - ref).abs().max())
     close = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
-    say(f"phase {phase}: {path.label}: step-1 scores vs dense oracle: max|diff| "
+    form = "gather" if otp.method == "dfire" and otp.dfire_dq is None else "dense"
+    say(f"phase {phase}: {path.label}: step-1 scores vs {form} oracle: max|diff| "
         f"{err:.3e} (allclose {close}), score range [{float(ref.min()):.4f}, "
         f"{float(ref.max()):.4f}]")
     check(close, f"{path.label}: step-1 scores disagree with the dense oracle")
+
+
+def device_profile(fn):
+    """Run ``fn`` under torch.profiler; returns (wall us, device events,
+    launch-call events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launch = [e for e in prof.events() if e.device_type == DeviceType.CPU
+              and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                             "cudaLaunchKernelExC", "cuLaunchKernelEx")]
+    return wall_us, dev, launch
 
 
 def profile_steps(runner, card, kernel_names, first=10, last=30) -> str:
@@ -282,40 +351,34 @@ def profile_steps(runner, card, kernel_names, first=10, last=30) -> str:
     one-line summary.  Device time is the sum of the device-side events
     (kernels, copies, fills) the profiler records; on one stream they do not
     overlap, so it is the device's busy time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     runner.reset()
     runner.run(first)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.run(last)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    wall_us, dev_events, launch = device_profile(lambda: runner.run(last))
     steps = last - first
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev_events:
         return (f"[{card}] steps {first + 1}-{last}: wall {wall_us / 1e3:.3f} ms; "
                 "device time not measured (the profiler saw no device events)")
     busy = sum(e.time_range.elapsed_us() for e in dev_events)
     ours = [e for e in dev_events if any(k in e.name for k in kernel_names)]
     ours_us = sum(e.time_range.elapsed_us() for e in ours)
-    launch = [e for e in prof.events() if e.device_type == DeviceType.CPU
-              and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                             "cudaLaunchKernelExC", "cuLaunchKernelEx")]
     launch_us = sum(e.time_range.elapsed_us() for e in launch)
+    by_name = {}
+    for e in dev_events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     return (f"[{card}] profile of steps {first + 1}-{last}: wall "
             f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
             f"({busy / wall_us:.4f} of wall), {len(dev_events)} device ops "
             f"({len(dev_events) / steps:.1f} a step), {len(launch)} launch "
             f"calls taking {launch_us / 1e3:.3f} ms of host time; pair "
-            f"kernel (both launches) {ours_us / 1e3:.3f} ms over {len(ours)} "
-            f"device ops ({ours_us / busy:.4f} of device busy)")
+            f"kernel (all its launches) {ours_us / 1e3:.3f} ms over {len(ours)} "
+            f"device ops ({ours_us / busy:.4f} of device busy); most device "
+            "time: " + "; ".join(f"{name[:70]} {us / 1e3:.3f} ms over {n}"
+                                 for name, (n, us) in top))
 
 
-def timing(path, main, card, phases):
+def timing(path, main, card, phases, plain_reps=10):
     """Kernel vs plain ms a call, the path's poses/s (min of 5, reset
     before each), steps 1-20 one at a time, and the profile of steps
     11-30.  Returns (kernel_ms, plain_ms)."""
@@ -323,9 +386,10 @@ def timing(path, main, card, phases):
 
     args, kwargs = main
     kernel_ms = cuda_ms(lambda: path.kernel(*args, **kwargs), 200)
-    plain_ms = cuda_ms(lambda: path.plain(*args, **kwargs), 10)
+    plain_ms = cuda_ms(lambda: path.plain(*args, **kwargs), plain_reps)
     say(f"phase {phases[0]}: [{card}] {path.label} kernel at G={N_POSES}: "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms per call")
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms per call "
+        f"({plain_reps} plain calls)")
     timer = path.runner()
     times = []
     for _ in range(5):
@@ -370,6 +434,34 @@ def f64_errors(path, main, phase):
         f"{float(exact.abs().max()):.3e}")
 
 
+def bound(main, out, ev=False):
+    """(bound_ms, bound_by) of one kernel call: the larger of the bytes its
+    inputs and outputs take once over the HBM rate and its f32 operations
+    over the f32 peak, counting the pair-poses of this call's active
+    chunk-tiles (32 x 128 atoms x 16 poses each)."""
+    import torch
+
+    args, kwargs = main
+    tensors = []
+    for a in list(args) + [kwargs.get("near_chunks")] + list(out):
+        if torch.is_tensor(a):
+            tensors.append(a)
+        elif isinstance(a, tuple):   # DfireTables
+            tensors += [x for x in a if torch.is_tensor(x)]
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    act = args[8] if ev else args[3]
+    per_chunk_tile = kwargs["r_tile"] * kwargs["l_tile"] * 16
+    n_act = int(act.sum())
+    if ev:
+        near = kwargs["near_chunks"]
+        n_near = int((act * near).sum()) if near is not None else n_act
+        flops = (n_near * FLOPS_EV_NEAR + (n_act - n_near) * FLOPS_EV_FAR) * per_chunk_tile
+    else:
+        flops = n_act * FLOPS_DFIRE * per_chunk_tile
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def coincident_pair(phase):
     """A coincident atom pair: NaN in the kernel and in its plain version."""
     import torch
@@ -393,6 +485,96 @@ def coincident_pair(phase):
           "a coincident pair must give NaN in the kernel and in plain")
 
 
+def worklist_checks(k4c, anm, gen, main, phase):
+    """Phase 10 beyond the plain comparisons: K2 against K1 on the 1k4c
+    inputs, an empty work list, and K2 with a per-pose receptor at the
+    1ppe shape.  Returns the max error against plain."""
+    import torch
+
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+
+    args, kwargs = main
+    k2 = dp.dfire_pairs_worklist(*args, **kwargs)
+    k1 = dp.dfire_pairs(*args, **kwargs)
+    err = float((k2[0] - k1[0]).abs().max())
+    close = bool(torch.allclose(k2[0], k1[0], rtol=RTOL, atol=ATOL))
+    flags = torch.equal(k2[1], k1[1]) and torch.equal(k2[2], k1[2])
+    say(f"phase {phase}: {k4c.label} K2 against K1 on the same inputs: max|raw "
+        f"diff| {err:.3e} (allclose {close}), interface flags equal {flags}")
+    check(close and flags, "K2 disagrees with K1")
+
+    # Every pose unmoved: no active chunk, an empty list.
+    moved = torch.zeros(N_POSES, dtype=torch.bool, device="cuda")
+    args0, kwargs0 = k4c.energy_fn.kernel_args(k4c.tp, *k4c.pose(N_POSES), moved)
+    n_active = int(dp.worklist(args0[3])[1])
+    err0 = compare(k4c, args0, kwargs0, phase, f"G={N_POSES} every pose unmoved")
+    out0 = dp.dfire_pairs_worklist(*args0, **kwargs0)
+    empty = not (out0[0].any() or out0[1].any() or out0[2].any())
+    prev = torch.rand(N_POSES, generator=gen, device="cuda") * 10 - 5
+    scores = k4c.energy_fn(k4c.tp, *k4c.pose(N_POSES), moved=moved, prev_scoring=prev)
+    kept = torch.equal(scores, prev)
+    say(f"phase {phase}: {k4c.label} every pose unmoved: n_active {n_active}, "
+        f"zero sums and no flags {empty}, scores equal prev_scoring {kept}")
+    check(n_active == 0 and empty and kept, "the empty work list is not empty")
+
+    # A per-pose receptor (receptor ANM) at the 1ppe shape.
+    g = torch.Generator(device="cuda").manual_seed(11)
+    moved = torch.rand(N_POSES, generator=g, device="cuda") < 0.6
+    for gate in (None, moved):
+        a, kw = anm.energy_fn.kernel_args(anm.tp, *anm.pose(N_POSES), gate)
+        check(a[0].shape[0] == N_POSES, "the 1ppe ANM receptor is not per pose")
+        err = max(err, compare(anm, a, kw, phase, f"G={N_POSES} per-pose receptor "
+                               f"moved_gate={gate is not None}",
+                               dp.dfire_pairs_worklist, dp.dfire_pairs_worklist_plain))
+    return max(err, err0)
+
+
+def worklist_timing(k4c, main, card, phase):
+    """K2 a call (CUDA events), its three device passes alone
+    (torch.profiler over 20 calls), and K1 on the same inputs.  Returns
+    (K2 ms, K1 ms)."""
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+
+    args, kwargs = main
+    k2_ms = cuda_ms(lambda: dp.dfire_pairs_worklist(*args, **kwargs), 50)
+    k1_ms = cuda_ms(lambda: dp.dfire_pairs(*args, **kwargs), 50)
+    _, dev, _ = device_profile(
+        lambda: [dp.dfire_pairs_worklist(*args, **kwargs) for _ in range(20)])
+    parts = {}
+    for name in ("compact_tiles_kernel", "dfire_pairs_worklist_kernel", "sum_rows_kernel"):
+        us = [e.time_range.elapsed_us() for e in dev if name in e.name]
+        parts[name] = (f"{sum(us) / len(us) / 1e3:.4f} ms" if us
+                       else "not measured (no device events)")
+    say(f"phase {phase}: [{card}] {k4c.label} at G={N_POSES}: K2 {k2_ms:.4f} ms "
+        f"a call, K1 on the same inputs {k1_ms:.4f} ms; K2's passes alone: "
+        f"compaction {parts['compact_tiles_kernel']}, pairs "
+        f"{parts['dfire_pairs_worklist_kernel']}, second pass "
+        f"{parts['sum_rows_kernel']}")
+    return k2_ms, k1_ms
+
+
+def active_share(path, phase):
+    """The step-1 active share of tile pairs on the path (every pose
+    scores at step 1): n_active of n_r n_l."""
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+
+    args, _ = path.energy_fn.kernel_args(path.tp, *path.pose(N_POSES))
+    act = args[3]
+    n_tiles = act.shape[0] * act.shape[1]
+    n_active = int(dp.worklist(act)[1])
+    say(f"phase {phase}: {path.label}: step 1 active tile pairs {n_active} of "
+        f"{n_tiles} ({n_active / n_tiles:.4f}), active chunk-tiles "
+        f"{int(act.sum())} of {act.numel()} ({int(act.sum()) / act.numel():.4f})")
+    check(0 < n_active < n_tiles, f"{path.label}: {n_active} of {n_tiles} tile "
+          "pairs active at step 1; the work list would be a no-op")
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -406,6 +588,7 @@ def main() -> int:
              "a checkout of the repository")
     sys.path.insert(0, str(ROOT))
 
+    from lightdock_tpu_torch import standin
     from lightdock_tpu_torch.ops import _build
     from lightdock_tpu_torch.ops import dfire_pairs as dp
     from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
@@ -413,6 +596,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    t_start = time.perf_counter()
 
     # -- 1. the card and the build ------------------------------------------
     say(card)
@@ -423,31 +607,29 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, lib in built.items():
         ptxas = [ln.strip() for ln in lib.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
         say(f"phase 1: built {lib.path.name} (nvcc {lib.build_seconds:.2f} s); "
             f"ptxas: {' | '.join(ptxas) or 'reused'}")
-    say(f"phase 1: both kernels built in {build_s:.2f} s")
+    say(f"phase 1: both sources built in {build_s:.2f} s")
 
-    counters = (dp.dfire_pairs, ev.elec_vdw_pairs)
+    counters = (dp.dfire_pairs, dp.dfire_pairs_worklist, ev.elec_vdw_pairs)
     gen = torch.Generator(device="cuda").manual_seed(7)
     rng = np.random.RandomState(SEED)
 
     # -- 2-5. the DFIRE path and K1 -----------------------------------------
-    dfire = KernelPath("K1 DFIRE", dp.dfire_pairs, dp.dfire_pairs_plain,
-                 ("dfire_pairs_kernel", "sum_tiles_kernel"), *DFIRE_ATOMS)
+    dfire = KernelPath("1ppe DFIRE", standin.toy_system(*DFIRE_ATOMS, N_POSES))
+    check(dfire.kernel is dp.dfire_pairs, "the 1ppe path did not choose K1")
     k1_err, k1_main = kernel_cases(dfire, 2, gen, rng)
     k1_launches, step1 = drive(dfire, counters, 3)
     oracle(dfire, step1, 3)
     k1_ms, k1_plain_ms = timing(dfire, k1_main, card, (4, 5))
 
     # -- 6-8. the DNA + ANM path and K3 --------------------------------------
-    rigid = KernelPath("K3 rigid DNA", ev.elec_vdw_pairs, ev.elec_vdw_pairs_plain,
-                 ("elec_vdw_pairs_kernel", "sum_tiles_kernel"), *DNA_ATOMS,
-                 method="dna")
+    rigid = KernelPath("1azp DNA rigid", standin.toy_system(*DNA_ATOMS, N_POSES,
+                                                            method="dna"))
     k3_err, _ = kernel_cases(rigid, 6, gen, rng)
-    dna = KernelPath("K3 DNA + ANM", ev.elec_vdw_pairs, ev.elec_vdw_pairs_plain,
-               ("elec_vdw_pairs_kernel", "sum_tiles_kernel"), *DNA_ATOMS,
-               num_anm=DNA_ANM, method="dna")
+    dna = KernelPath("1azp DNA + ANM", standin.toy_system(
+        *DNA_ATOMS, N_POSES, num_anm=DNA_ANM, method="dna"))
     err, k3_main = kernel_cases(dna, 6, gen, rng)
     k3_err = max(k3_err, err)
     f64_errors(dna, k3_main, 6)
@@ -455,27 +637,60 @@ def main() -> int:
     k3_launches, step1 = drive(dna, counters, 7)
     oracle(dna, step1, 7)
     k3_ms, k3_plain_ms = timing(dna, k3_main, card, (8, 8))
-    check("jax" not in sys.modules, "the port imported jax")
 
-    say(json.dumps({"kernels": [{
-        "name": "dfire_pairs",
-        "route": "cuda",
-        "source": "lightdock_tpu_torch/csrc/dfire_pairs.cu",
-        "replaces": "lightdock_tpu/ops/pallas_energy.py:1088",
-        "launches": k1_launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
-    }, {
-        "name": "elec_vdw_pairs",
-        "route": "cuda",
-        "source": "lightdock_tpu_torch/csrc/elec_vdw_pairs.cu",
-        "replaces": "lightdock_tpu/ops/pallas_energy.py:1325",
-        "launches": k3_launches,
-        "max_abs_err": k3_err,
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-    }]}))
+    # -- 9. K1 with a per-pose receptor: the DFIRE + ANM path ----------------
+    anm = KernelPath("1ppe DFIRE + ANM", standin.toy_system(
+        *DFIRE_ATOMS, N_POSES, num_anm=DNA_ANM))
+    check(anm.kernel is dp.dfire_pairs, "the DFIRE + ANM path did not choose K1")
+    err, anm_main = kernel_cases(anm, 9, gen, rng)
+    k1_err = max(k1_err, err)
+    anm_launches, step1 = drive(anm, counters, 9, steps=ANM_STEPS)
+    oracle(anm, step1, 9)
+
+    # -- 10. K2 against plain, K1 and an empty list at the 1k4c shapes -------
+    k4c = KernelPath("1k4c DFIRE membrane", (*standin.membrane_system(N_POSES), 0))
+    check(k4c.kernel is dp.dfire_pairs_worklist, "the 1k4c path did not choose K2")
+    k2_err, k2_main = kernel_cases(k4c, 10, gen, rng)
+    k2_err = max(k2_err, worklist_checks(k4c, anm, gen, k2_main, 10))
+
+    # -- 11. the 1k4c-shaped DFIRE membrane path -----------------------------
+    active_share(k4c, 11)
+    k2_launches, step1 = drive(k4c, counters, 11)
+    oracle(k4c, step1, 11)
+
+    # -- 12. K2's timings ----------------------------------------------------
+    k2_ms, k1_same_ms = worklist_timing(k4c, k2_main, card, 12)
+    k1_pp_ms = cuda_ms(lambda: dp.dfire_pairs(*anm_main[0], **anm_main[1]), 200)
+    _, k2_plain_ms = timing(k4c, k2_main, card, (12, 12), plain_reps=2)
+    check("jax" not in sys.modules and not any(
+        m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
+        "the port imported jax or the JAX package")
+
+    out = dp.dfire_pairs(*k1_main[0], **k1_main[1])
+    k1_bound = bound(k1_main, out)
+    out = ev.elec_vdw_pairs(*k3_main[0], **k3_main[1])
+    k3_bound = bound(k3_main, out, ev=True)
+    out = dp.dfire_pairs_worklist(*k2_main[0], **k2_main[1])
+    k2_bound = bound(k2_main, out)
+    out = dp.dfire_pairs(*anm_main[0], **anm_main[1])
+    pp_bound = bound(anm_main, out)
+    say(f"phase 12: [{card}] bounds: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), "
+        f"K3 {k3_bound[0]:.4f} ms ({k3_bound[1]}), K2 {k2_bound[0]:.4f} ms "
+        f"({k2_bound[1]}); K1 on K2's inputs {k1_same_ms:.4f} ms; K1 with a "
+        f"per-pose receptor (phase 9 inputs, G={N_POSES}) {k1_pp_ms:.4f} ms a "
+        f"call, bound {pp_bound[0]:.4f} ms ({pp_bound[1]}); DFIRE + ANM path "
+        f"K1 launches {anm_launches} in {ANM_STEPS} steps; whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    pallas = "lightdock_tpu/ops/pallas_energy.py"
+    say(json.dumps({"kernels": [
+        record("dfire_pairs", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
+               f"{pallas}:1088", k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound),
+        record("elec_vdw_pairs", "lightdock_tpu_torch/csrc/elec_vdw_pairs.cu",
+               f"{pallas}:1325", k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
+        record("dfire_pairs_worklist", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
+               f"{pallas}:1115", k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
+    ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,10 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from lightdock_tpu import constants as C
-from lightdock_tpu.engine.energy_batch import BatchScoringParams
-
+from .. import constants as C
 from ..ops import quaternion as qt
+from .params import BatchScoringParams
 
 IFACE2 = ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2
 

@@ -7,8 +7,9 @@ the receptor (1, Nr, 3), or (G, Nr, 3) with receptor ANM, the box cull
 with ANM slack at the method's energy, interface and near cutoffs, sub-box
 to tile coarsening, the OR over each pose chunk, the moved-first + Morton
 pose order and its inverse, the moved gate, then the kernel
-(``ops.dfire_pairs`` for DFIRE, ``ops.elec_vdw_pairs`` for DNA and
-PYDOCK), the affine finish and the restraint bias.
+(``ops.dfire_pairs`` K1 or ``ops.dfire_pairs_worklist`` K2 for DFIRE,
+``ops.elec_vdw_pairs`` for DNA and PYDOCK), the affine finish and the
+restraint bias.
 
 The tile shape is the GPU's own (``ops.tiling.R_TILE`` x ``L_TILE``, 16
 poses a chunk); the TPU's tile picker and VMEM pose cap do not apply.
@@ -17,22 +18,31 @@ poses a chunk); the TPU's tile picker and VMEM pose cap do not apply.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from lightdock_tpu import constants as C
-from lightdock_tpu.engine.energy_batch import (BatchScoringParams,
-                                               ensure_dfire_types)
-
+from .. import constants as C
 from ..ops import quaternion as qt
 from ..ops.cull import cull_mask_boxes, morton_key, pose_slack
-from ..ops.dfire_pairs import POSE_BLOCK, dfire_pairs, dfire_tables
+from ..ops.dfire_pairs import (POSE_BLOCK, dfire_pairs, dfire_pairs_worklist,
+                               dfire_tables)
 from ..ops.elec_vdw_pairs import elec_vdw_pairs
 from ..ops.tiling import (L_TILE, R_TILE, anm_mode_bounds, cull_subsizes,
                           pad_box_groups, rec_box_geometry,
                           spatial_sort_params, tile_boxes)
 from .energy_dense import bias, finalize_raw, mode_sum, rotate_translate
+from .params import BatchScoringParams, ensure_dfire_types
+
+# The JAX rule (``pallas_energy.V2_WORKLIST_MIN_TILES``): DFIRE grids of at
+# least this many tile pairs take the work-list kernel K2.
+WORKLIST_MIN_TILES = 512
+
+
+def use_worklist(n_r: int, n_l: int) -> bool:
+    """Whether the DFIRE path takes K2 on an n_r x n_l tile grid."""
+    return n_r * n_l >= WORKLIST_MIN_TILES
 
 
 def kernel_params(params: BatchScoringParams) -> BatchScoringParams:
@@ -53,33 +63,42 @@ def frame_center(params: BatchScoringParams) -> np.ndarray:
 
 def make_kernel_energy_fn(params: BatchScoringParams, device,
                           dtype: torch.dtype = torch.float32,
-                          cull: bool = True):
+                          cull: bool = True, worklist: Optional[bool] = None):
     """Build ``energy_fn(p, t, q, a_rec, a_lig, moved=None,
     prev_scoring=None) -> (G,)``.
 
     ``params`` is the NumPy ``BatchScoringParams`` (spatially sorted; for
-    DFIRE with the type-indexed tables of ``energy_batch.ensure_dfire_types``);
+    DFIRE with the type-indexed tables of ``engine.params.ensure_dfire_types``);
     the cull boxes and the DFIRE kernel's tables are built from it once, on
     ``device`` at ``dtype``.  ``p``, given at each call, is the same
     complex as tensors (``engine.params.torch_params``).
+
+    DFIRE runs K1 or, with ``worklist`` true, K2; ``worklist=None`` picks
+    K2 for grids of at least ``WORKLIST_MIN_TILES`` tile pairs (the JAX
+    rule, on the port's tiles).  The chosen kernel's wrapper is
+    ``energy_fn.kernel``.
     """
     dfire = params.method == "dfire"
     rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
     lig_anm = params.use_anm and params.lig_nmodes.shape[0] > 0
-    if dfire and rec_anm:
-        raise NotImplementedError(
-            "DFIRE with receptor ANM needs per-pose receptors in the DFIRE "
-            "kernel (K1), which a later port brings; the DFIRE kernel path "
-            "takes ligand ANM only")
     if dfire and params.dfire_rec_half is None:
         raise ValueError("the DFIRE kernel needs the type-indexed tables "
-                         "(energy_batch.ensure_dfire_types)")
+                         "(engine.params.ensure_dfire_types)")
+    if worklist and not dfire:
+        raise ValueError("the work-list kernel (K2) scores DFIRE only, "
+                         f"not {params.method}")
     r_tile, l_tile = R_TILE, L_TILE
     nr = params.rec_coords.shape[0]
     nl = params.lig_coords.shape[0]
     r_sub, l_sub = cull_subsizes(nr, nl, r_tile, l_tile)
     n_r = -(-nr // r_tile)
     n_l = -(-nl // l_tile)
+    if not dfire:
+        kernel = elec_vdw_pairs
+    elif worklist or (worklist is None and use_worklist(n_r, n_l)):
+        kernel = dfire_pairs_worklist
+    else:
+        kernel = dfire_pairs
     rg, lg = r_tile // r_sub, l_tile // l_sub
     # Cull boxes of r_sub x l_sub atoms, nested in the kernel tiles by the
     # RCB order; bits are OR-reduced to tiles each step.
@@ -134,9 +153,8 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         return torch.where(moved, scores, prev_scoring)
 
     def kernel_args(p: BatchScoringParams, t, q, a_rec, a_lig, moved=None):
-        """(args, kwargs) of the kernel call (``dfire_pairs`` or
-        ``elec_vdw_pairs``) that scores poses (t, q, a_rec, a_lig) in the
-        order given."""
+        """(args, kwargs) of the kernel call (``energy_fn.kernel``) that
+        scores poses (t, q, a_rec, a_lig) in the order given."""
         g = t.shape[0]
         rot = qt.rotation_matrix(q)
         lig = rotate_translate(rot, p.lig_coords, t - center[None, :])  # (G, 3, Nl)
@@ -174,11 +192,12 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
 
     def _compute(p: BatchScoringParams, t, q, a_rec, a_lig, moved):
         args, kwargs = kernel_args(p, t, q, a_rec, a_lig, moved)
-        raw, ifr, ifl = (dfire_pairs if dfire else elec_vdw_pairs)(*args, **kwargs)
+        raw, ifr, ifl = kernel(*args, **kwargs)
         score = finalize_raw(p, raw)
         if ifr is None:
             return score
         return bias(p, score, ifr[:, :nr], ifl[:, :nl])
 
     energy_fn.kernel_args = kernel_args
+    energy_fn.kernel = kernel
     return energy_fn

@@ -14,10 +14,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lightdock_tpu import constants as C
-from lightdock_tpu.utils.positions import split_positions
-
+from .. import constants as C
 from ..ops import quaternion as qt
+from ..utils.positions import split_positions
 
 
 class SwarmState(NamedTuple):

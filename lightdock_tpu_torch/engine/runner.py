@@ -3,10 +3,10 @@
 Port of ``lightdock_tpu/engine/gso_jax.py`` ``GsoJaxRunner`` for the
 kernel path: the host-side rand-0.7 stream (reference RNG mode), ``run``,
 ``run_segmented``, ``reset``, ``load_snapshot`` from a ``.npz`` sidecar,
-and the ``gso_N.out`` snapshots with their sidecars through the shared
-``lightdock_tpu.utils.output``, with ANM coefficients when ``use_anm``.
-Energies go through ``engine.energy_kernel`` (the method's CUDA kernel on
-a GPU, its plain version on the CPU).
+and the ``gso_N.out`` snapshots with their sidecars (``utils.output``),
+with ANM coefficients when ``use_anm``.  Energies go through
+``engine.energy_kernel``: the method's CUDA kernel on the card (the
+default device), its plain version where the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -18,14 +18,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lightdock_tpu.engine.energy_batch import BatchScoringParams
-from lightdock_tpu.utils.output import (read_state_sidecar, write_gso_output,
-                                        write_state_sidecar)
-from lightdock_tpu.utils.rng import uniform_f64_stream
-
+from ..utils.output import (read_state_sidecar, write_gso_output,
+                            write_state_sidecar)
+from ..utils.rng import uniform_f64_stream
 from .energy_kernel import kernel_params, make_kernel_energy_fn
 from .gso import StepOutput, SwarmState, init_state, run_swarm
-from .params import torch_params
+from .params import BatchScoringParams, torch_params
 
 
 class GsoTorchRunner:
@@ -36,11 +34,11 @@ class GsoTorchRunner:
     def __init__(self, params: BatchScoringParams, positions, seed: int,
                  use_anm: bool, anm_rec: int, anm_lig: int,
                  output_directory: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("GsoTorchRunner(device='cuda') needs a CUDA "
-                               "GPU, and torch sees none")
+            raise RuntimeError("GsoTorchRunner runs on a CUDA GPU unless "
+                               "given device='cpu', and torch sees none")
         # Full f32 in every matmul: TF32 would move pairs across DFIRE bin
         # edges and loosen the cull bounds.
         torch.backends.cuda.matmul.allow_tf32 = False

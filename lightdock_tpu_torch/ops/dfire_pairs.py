@@ -1,12 +1,17 @@
-"""DFIRE pair kernel (K1): the Hopper kernel, its plain version, its tables.
+"""DFIRE pair kernels K1 and K2: the Hopper kernels, their plain versions,
+their tables.
 
 Port of ``lightdock_tpu/ops/pallas_energy.py`` ``dfire_pairs_pallas_v2``
-and the kernel it launches, ``_dfire_kernel_v2``.  The kernel source is
-``csrc/dfire_pairs.cu``; its header note says what bounds it on the card
-and what the design does about it.
+and the two kernels it launches: ``_dfire_kernel_v2`` (K1,
+:func:`dfire_pairs`) over the whole tile grid, and ``_dfire_kernel_v2_wl``
+(K2, :func:`dfire_pairs_worklist`) over a compacted list of the tiles that
+have any active chunk.  The kernel source is ``csrc/dfire_pairs.cu``; its
+header note says what bounds the kernels on the card and what the design
+does about it.
 
-Contract (both versions): for poses ``lig_all`` (G, 3, Nl) and a rigid
-receptor ``rec_all`` (1, Nr, 3), both re-centred, return
+Contract (all four functions): for poses ``lig_all`` (G, 3, Nl) and a
+receptor ``rec_all``, rigid (1, Nr, 3) or per pose (G, Nr, 3) with
+receptor ANM, both re-centred, return
 
 * ``raw`` (G,): sum over atom pairs with d2 <= 225 of the cumulative
   DFIRE potential at the bin of d2, over the (receptor tile, ligand tile,
@@ -16,14 +21,24 @@ receptor ``rec_all`` (1, Nr, 3), both re-centred, return
   and has at least one pose with its ``iface_active`` bit set; or
   ``None, None`` when ``need_iface`` is false.
 
-Padding is the reference's: poses are padded to the chunk at 1e6,
-receptor atoms at +1e6 and ligand atoms at -1e6 (their tables are zero).
-Near bits only shorten the kernel's bin search and skip interface work
-where no pair can be that close; values are unchanged, so the plain
-version ignores them.
+K1 adds the tiles' sums in tile order, K2 in work-list order (the listed
+tiles ascending), so the two agree within tolerance, not bit for bit.
+When no chunk is active, K2's list is empty, ``raw`` is zero and the flags
+are empty.
 
-On a CPU tensor :func:`dfire_pairs` runs :func:`dfire_pairs_plain`; on a
-CUDA tensor it launches the kernel or raises.  There is no fallback.
+Padding is the reference's: poses are padded to the chunk at 1e6 (both
+molecules, for a per-pose receptor), receptor atoms at +1e6 and ligand
+atoms at -1e6 (their tables are zero); results are cut to the G real
+poses.  A chunk-tile whose ``near_chunks`` bit is 0 takes its bins from
+the far split up and does no interface work.  The energy path sets the
+bit from its box cull, where it is 0 only if no pair is that close, for
+the moved poses of the chunk: for them values are unchanged.  An unmoved
+pose sharing an active chunk may take a far bin, as in the JAX kernel; the
+moved gate discards its score.  The plain versions honour the bits the
+same way.
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.  There is no fallback.
 """
 
 from __future__ import annotations
@@ -34,8 +49,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from lightdock_tpu import constants as C
-
+from .. import constants as C
 from . import _build
 from .tiling import dfire_far_split, dfire_live_channels
 
@@ -65,7 +79,7 @@ def dfire_tables(rec_half: torch.Tensor, lig_onehot: torch.Tensor,
                  thresholds, r_tile: int, l_tile: int) -> DfireTables:
     """Build :class:`DfireTables` from the type-factored tables
     ``rec_half`` (K, Nr, T) and ``lig_onehot`` (T, Nl) of
-    ``energy_batch.dfire_type_tables``, padded to whole tiles."""
+    ``engine.params.dfire_type_tables``, padded to whole tiles."""
     thresholds = tuple(float(x) for x in thresholds)
     live = dfire_live_channels(thresholds)
     if len(live) > MAX_CHANNELS:
@@ -122,32 +136,47 @@ def check_bits(active_chunks, near_chunks, iface, n_r, n_l, gp):
                          f"{(n_r, n_l, gp)}")
 
 
-def _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile):
-    if rec.dim() != 3 or rec.shape[0] != 1 or rec.shape[2] != 3:
-        raise NotImplementedError(
-            "per-pose receptors (receptor ANM) reach the DFIRE kernel in a "
-            f"later port; got rec_all {tuple(rec.shape)}")
-    if lig.dim() != 3 or lig.shape[1] != 3:
-        raise ValueError(f"lig_all must be (G, 3, Nl), got {tuple(lig.shape)}")
+def _padded(rec_all, lig_all, tables, active_chunks, iface_active,
+            near_chunks, r_tile, l_tile):
+    """The inputs padded as the kernels take them, with their shapes
+    checked."""
+    if lig_all.dim() != 3 or lig_all.shape[1] != 3:
+        raise ValueError(f"lig_all must be (G, 3, Nl), got {tuple(lig_all.shape)}")
+    g = lig_all.shape[0]
+    if rec_all.dim() != 3 or rec_all.shape[2] != 3 or rec_all.shape[0] not in (1, g):
+        raise ValueError(f"rec_all {tuple(rec_all.shape)} is neither rigid "
+                         f"(1, Nr, 3) nor per pose ({g}, Nr, 3)")
+    rec, lig, iface = pad_inputs(rec_all, lig_all, iface_active, r_tile, l_tile)
     gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
-    n_r, n_l = nr_pad // r_tile, nl_pad // l_tile
     if tables.cum.shape[0] != nr_pad or tables.lig_type.shape[0] != nl_pad:
         raise ValueError("tables were built for other tiles: cum "
                          f"{tuple(tables.cum.shape)}, lig_type "
                          f"{tuple(tables.lig_type.shape)}; atoms pad to "
                          f"({nr_pad}, {nl_pad})")
-    check_bits(active_chunks, near_chunks, iface, n_r, n_l, gp)
+    check_bits(active_chunks, near_chunks, iface, nr_pad // r_tile,
+               nl_pad // l_tile, gp)
+    if tables.split is None and near_chunks is not None:
+        raise ValueError("near bits need a far split in the tables")
+    return rec, lig, iface
 
 
-def dfire_pairs_plain(rec_all, lig_all, tables: DfireTables, active_chunks,
-                      iface_active, *, r_tile: int, l_tile: int,
-                      need_iface: bool = True, near_chunks=None):
-    """Plain PyTorch version of the kernel's contract, one pose chunk at a
-    time (see the module docstring).  Any device, f32 or f64."""
+def worklist(active_chunks):
+    """The work list of K2 as torch ops (the kernel builds its own):
+    ``(tiles (n_tiles,) int32, n_active (1,) int32)``, the flat indices
+    r * n_l + l of the tiles with any active chunk first, ascending (a
+    stable compaction), then the others; no host sync."""
+    live = (active_chunks != 0).any(dim=2).reshape(-1)
+    order = torch.argsort(torch.logical_not(live).to(torch.int32), stable=True)
+    return order.to(torch.int32), live.sum().to(torch.int32).reshape(1)
+
+
+def _plain(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
+           l_tile, need_iface, near_chunks, tile_order):
+    """Both plain versions; ``tile_order`` is None (K1: every tile, in tile
+    order) or K2's work list (tiles, n_active)."""
     g = lig_all.shape[0]
-    rec, lig, iface = pad_inputs(rec_all, lig_all, iface_active,
-                                 r_tile, l_tile)
-    _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile)
+    rec, lig, iface = _padded(rec_all, lig_all, tables, active_chunks,
+                              iface_active, near_chunks, r_tile, l_tile)
     gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
     n_r, n_l = nr_pad // r_tile, nl_pad // l_tile
     dev, dtype = lig.device, lig.dtype
@@ -156,44 +185,78 @@ def dfire_pairs_plain(rec_all, lig_all, tables: DfireTables, active_chunks,
              + tables.lig_type.to(torch.int64)[None, :]) * kp)   # (Nr, Nl)
     cum = tables.cum.reshape(-1)
     thr = tables.thresholds
-    r = rec[0]
 
     def expand(bits):  # (n_r, n_l) -> (Nr_pad, Nl_pad)
         return bits.repeat_interleave(r_tile, 0).repeat_interleave(l_tile, 1)
 
-    raw = torch.empty(gp, dtype=dtype, device=dev)
+    tile_sums = torch.empty((gp, n_r * n_l), dtype=dtype, device=dev)
     ifr = torch.zeros((gp, nr_pad), dtype=dtype, device=dev)
     ifl = torch.zeros((gp, nl_pad), dtype=dtype, device=dev)
     for c in range(gp // POSE_BLOCK):
         sl = slice(c * POSE_BLOCK, (c + 1) * POSE_BLOCK)
         lc = lig[sl]                                              # (P, 3, Nl)
-        dx = lc[:, None, 0, :] - r[None, :, 0, None]
-        dy = lc[:, None, 1, :] - r[None, :, 1, None]
-        dz = lc[:, None, 2, :] - r[None, :, 2, None]
+        rc = rec if rec.shape[0] == 1 else rec[sl]                # (P|1, Nr, 3)
+        dx = lc[:, None, 0, :] - rc[:, :, 0, None]
+        dy = lc[:, None, 1, :] - rc[:, :, 1, None]
+        dz = lc[:, None, 2, :] - rc[:, :, 2, None]
         d2 = dx * dx + dy * dy + dz * dz                          # (P, Nr, Nl)
         gate = expand(active_chunks[:, :, c] != 0)
         bins = torch.zeros(d2.shape, dtype=torch.int64, device=dev)
         for k in range(1, len(thr)):
             bins += d2 >= thr[k]
+        if near_chunks is not None:   # far chunk-tiles: bins from the split up
+            near = expand(near_chunks[:, :, c] != 0)
+            bins = torch.where(near, bins, torch.clamp(bins, min=tables.split))
+            gate_iface = gate & near
+        else:
+            gate_iface = gate
         val = torch.take(cum, base[None] + bins)
         contrib = torch.where((d2 <= C.DFIRE_DIST_CUTOFF2) & gate, val,
                               torch.zeros_like(val))
-        tile_sums = contrib.reshape(POSE_BLOCK, n_r, r_tile, n_l, l_tile).sum(dim=(2, 4))
-        raw[sl] = tile_sums.reshape(POSE_BLOCK, n_r * n_l).sum(dim=1)
+        tile_sums[sl] = contrib.reshape(POSE_BLOCK, n_r, r_tile, n_l,
+                                        l_tile).sum(dim=(2, 4)).reshape(POSE_BLOCK, -1)
         if need_iface:
             any_iface = iface[:, :, sl].any(dim=-1)
-            close = (d2 <= IFACE2) & (gate & expand(any_iface))
+            close = (d2 <= IFACE2) & (gate_iface & expand(any_iface))
             ifr[sl] = close.any(dim=2).to(dtype)
             ifl[sl] = close.any(dim=1).to(dtype)
+    if tile_order is None:
+        raw = tile_sums.sum(dim=1)
+    else:
+        tiles, n_active = tile_order
+        listed = torch.arange(tiles.shape[0], device=dev) < n_active
+        rows = tile_sums[:, tiles.to(torch.int64)]
+        raw = torch.where(listed[None, :], rows, torch.zeros_like(rows)).sum(dim=1)
     if not need_iface:
         return raw[:g], None, None
     return raw[:g], ifr[:g], ifl[:g]
 
 
-def _bind(lib):
-    fn = lib.dfire_pairs_launch
+def dfire_pairs_plain(rec_all, lig_all, tables: DfireTables, active_chunks,
+                      iface_active, *, r_tile: int, l_tile: int,
+                      need_iface: bool = True, near_chunks=None):
+    """Plain PyTorch version of K1 (see the module docstring), one pose
+    chunk at a time.  Any device, f32 or f64."""
+    return _plain(rec_all, lig_all, tables, active_chunks, iface_active,
+                  r_tile, l_tile, need_iface, near_chunks, None)
+
+
+def dfire_pairs_worklist_plain(rec_all, lig_all, tables: DfireTables,
+                               active_chunks, iface_active, *, r_tile: int,
+                               l_tile: int, need_iface: bool = True,
+                               near_chunks=None):
+    """Plain PyTorch version of K2: K1's plain version with the tile sums
+    added over :func:`worklist`'s first ``n_active`` entries.  Any device,
+    f32 or f64."""
+    return _plain(rec_all, lig_all, tables, active_chunks, iface_active,
+                  r_tile, l_tile, need_iface, near_chunks,
+                  worklist(active_chunks))
+
+
+def _bind(lib, name, n_ptrs):
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_float,
                       ctypes.c_void_p])
@@ -201,7 +264,7 @@ def _bind(lib):
 
 
 def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
-            l_tile, need_iface, near_chunks):
+            l_tile, need_iface, near_chunks, use_worklist):
     g = lig_all.shape[0]
     if r_tile > MAX_R_TILE or l_tile > 256 or 256 % l_tile:
         raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): r_tile <= "
@@ -219,12 +282,9 @@ def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
     for x in (tables.lig_type, active_chunks, iface_active, near_chunks):
         if x is not None and x.dtype != torch.int32:
             raise TypeError(f"index and bit tensors must be int32, got {x.dtype}")
-    rec, lig, iface = pad_inputs(rec_all, lig_all, iface_active,
-                                 r_tile, l_tile)
+    rec, lig, iface = _padded(rec_all, lig_all, tables, active_chunks,
+                              iface_active, near_chunks, r_tile, l_tile)
     rec, lig, iface = rec.contiguous(), lig.contiguous(), iface.contiguous()
-    _check(rec, lig, tables, active_chunks, iface, near_chunks, r_tile, l_tile)
-    if tables.split is None and near_chunks is not None:
-        raise ValueError("near bits need a far split in the tables")
     act = active_chunks.contiguous()
     near = near_chunks.contiguous() if near_chunks is not None else None
     cum, lig_type = tables.cum.contiguous(), tables.lig_type.contiguous()
@@ -243,20 +303,42 @@ def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    fn = _bind(_build.load("dfire_pairs").lib)
+    lib = _build.load("dfire_pairs").lib
+    if use_worklist:
+        tiles = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        n_active = torch.empty(1, dtype=torch.int32, device=dev)
+        fn = _bind(lib, "dfire_pairs_worklist_launch", 13)
+        lists = (ptr(tiles), ptr(n_active))
+    else:
+        fn = _bind(lib, "dfire_pairs_launch", 11)
+        lists = ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(rec), ptr(lig), ptr(cum), ptr(lig_type), ptr(act),
-                 ptr(iface), ptr(near), ptr(partial), ptr(raw), ptr(ifr),
-                 ptr(ifl), nr_pad, nl_pad, gp, r_tile, l_tile,
-                 cum.shape[1], cum.shape[2], thr, len(tables.thresholds),
-                 tables.split or 0, C.DFIRE_DIST_CUTOFF2, IFACE2, stream)
+                 ptr(iface), ptr(near), *lists, ptr(partial), ptr(raw),
+                 ptr(ifr), ptr(ifl), nr_pad, nl_pad, gp, rec.shape[0], r_tile,
+                 l_tile, cum.shape[1], cum.shape[2], thr,
+                 len(tables.thresholds), tables.split or 0,
+                 C.DFIRE_DIST_CUTOFF2, IFACE2, stream)
+    name = "dfire_pairs_worklist" if use_worklist else "dfire_pairs"
     if err != 0:
-        raise RuntimeError(f"dfire_pairs kernel launch failed: CUDA error {err}")
-    dfire_pairs.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if not need_iface:
         return raw[:g], None, None
     return raw[:g], ifr[:g], ifl[:g]
+
+
+def _dispatch(wrapper, plain, use_worklist, args, kwargs):
+    dev = args[1].device.type
+    if dev == "cpu":
+        return plain(*args, **kwargs)
+    if dev != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {dev}")
+    out = _launch(*args, kwargs["r_tile"], kwargs["l_tile"],
+                  kwargs.get("need_iface", True), kwargs.get("near_chunks"),
+                  use_worklist)
+    wrapper.launches += 1
+    return out
 
 
 def dfire_pairs(rec_all, lig_all, tables: DfireTables, active_chunks,
@@ -267,15 +349,27 @@ def dfire_pairs(rec_all, lig_all, tables: DfireTables, active_chunks,
     A CPU tensor takes :func:`dfire_pairs_plain`; a CUDA tensor launches
     ``csrc/dfire_pairs.cu`` (float32 only) and adds one to
     ``dfire_pairs.launches``; any other device raises."""
-    dev = lig_all.device.type
-    if dev == "cpu":
-        return dfire_pairs_plain(rec_all, lig_all, tables, active_chunks,
-                                 iface_active, r_tile=r_tile, l_tile=l_tile,
-                                 need_iface=need_iface, near_chunks=near_chunks)
-    if dev != "cuda":
-        raise ValueError(f"dfire_pairs runs on cpu or cuda, not {dev}")
-    return _launch(rec_all, lig_all, tables, active_chunks, iface_active,
-                   r_tile, l_tile, need_iface, near_chunks)
+    return _dispatch(dfire_pairs, dfire_pairs_plain, False,
+                     (rec_all, lig_all, tables, active_chunks, iface_active),
+                     dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
+                          near_chunks=near_chunks))
+
+
+def dfire_pairs_worklist(rec_all, lig_all, tables: DfireTables, active_chunks,
+                         iface_active, *, r_tile: int, l_tile: int,
+                         need_iface: bool = True, near_chunks=None):
+    """K2: K1's contract over the work list of active tiles (see the module
+    docstring).
+
+    A CPU tensor takes :func:`dfire_pairs_worklist_plain`; a CUDA tensor
+    launches the work-list kernels of ``csrc/dfire_pairs.cu`` (float32
+    only; the list and its length stay on the device) and adds one to
+    ``dfire_pairs_worklist.launches``; any other device raises."""
+    return _dispatch(dfire_pairs_worklist, dfire_pairs_worklist_plain, True,
+                     (rec_all, lig_all, tables, active_chunks, iface_active),
+                     dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
+                          near_chunks=near_chunks))
 
 
 dfire_pairs.launches = 0
+dfire_pairs_worklist.launches = 0

@@ -42,8 +42,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from lightdock_tpu import constants as C
-
+from .. import constants as C
 from . import _build
 from .dfire_pairs import MAX_R_TILE, POSE_BLOCK, check_bits, pad_inputs
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from lightdock_tpu.constants import LINEAR_THRESHOLD
+from ..constants import LINEAR_THRESHOLD
 
 
 def qnormalize(q: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,8 @@ import dataclasses
 
 import numpy as np
 
-from lightdock_tpu import constants as C
-from lightdock_tpu.engine.energy_batch import BatchScoringParams
+from .. import constants as C
+from ..engine.params import BatchScoringParams
 
 R_TILE = 32
 L_TILE = 128

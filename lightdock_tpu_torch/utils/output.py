@@ -1,0 +1,63 @@
+"""gso_N.out snapshots and their full-precision ``.npz`` sidecars.
+
+Copy of ``lightdock_tpu/utils/output.py`` without its optional C writer:
+the text is rendered in Python, byte-compatible with the reference
+(src/swarm.rs:128-167): a header line, then per glowworm the pose tuple at
+7 decimals, the literal ``    0    0   `` column pair, luciferin at 8
+decimals, neighbour count, vision range at 3 decimals and scoring at 8
+decimals.
+"""
+
+from __future__ import annotations
+
+import pathlib
+
+import numpy as np
+
+HEADER = "#Coordinates  RecID  LigID  Luciferin  Neighbor's number  Vision Range  Scoring"
+
+
+def format_gso_output(poses, luciferin, num_neighbors, vision, scoring) -> str:
+    """Render the file body as a string."""
+    lines = [HEADER]
+    for g in range(poses.shape[0]):
+        tup = ", ".join(f"{v:.7f}" for v in poses[g])
+        lines.append(
+            f"({tup})    0    0   {luciferin[g]:.8f}  "
+            f"{int(num_neighbors[g])} {vision[g]:.3f} {scoring[g]:.8f}"
+        )
+    return "\n".join(lines) + "\n"
+
+
+def write_gso_output(path, poses, luciferin, num_neighbors, vision, scoring) -> None:
+    """Write one snapshot."""
+    poses = np.asarray(poses, dtype=np.float64)
+    pathlib.Path(path).write_text(
+        format_gso_output(poses, luciferin, num_neighbors, vision, scoring))
+
+
+def sidecar_path(out_path) -> pathlib.Path:
+    """Full-precision checkpoint sidecar next to a gso_N.out file."""
+    p = pathlib.Path(out_path)
+    return p.with_suffix(p.suffix + ".npz")
+
+
+def write_state_sidecar(out_path, step: int, **arrays) -> None:
+    """Write the full-precision swarm state next to the text snapshot: the
+    text rounds to 7/8 decimals, the sidecar keeps the device's bits, so a
+    resumed run is bit-identical."""
+    np.savez(sidecar_path(out_path), step=np.int64(step),
+             **{k: np.asarray(v) for k, v in arrays.items()})
+
+
+def read_state_sidecar(path):
+    """Load a sidecar (the .out path or the .npz path): (step, dict of
+    arrays), or None when there is none."""
+    p = pathlib.Path(path)
+    if p.suffix != ".npz":
+        p = sidecar_path(p)
+    if not p.exists():
+        return None
+    with np.load(p) as z:
+        data = {k: z[k] for k in z.files if k != "step"}
+        return int(z["step"]), data

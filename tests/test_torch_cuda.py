@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels (DFIRE K1, elec/vdw K3) against their plain
-versions, and the energy path on the card against the CPU.
+"""The hand-written CUDA kernels (DFIRE K1 and K2, elec/vdw K3) against
+their plain versions, and the energy path on the card against the CPU.
 
-Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports no JAX, so it
-runs where the JAX package is not installed:
+Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports neither JAX nor
+the JAX package (the systems come from ``lightdock_tpu_torch.standin``),
+so it runs where they are not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,12 +13,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from __graft_entry__ import _toy_system  # noqa: E402
 from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     kernel_params, make_kernel_energy_fn)
 from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
+from lightdock_tpu_torch.standin import toy_system  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -34,7 +35,7 @@ def _clustered_kernel_args(dev, g, seed=2, method="dfire", num_anm=0):
     chunk-tiles are far: near bits come from the energy path's own box
     cull (truthful), cull and interface bits are seeded at random.  With
     ``num_anm`` > 0 the receptor is per pose (receptor ANM)."""
-    params, pos, _ = _toy_system(300, 170, g, num_anm=num_anm, seed=seed,
+    params, pos, _ = toy_system(300, 170, g, num_anm=num_anm, seed=seed,
                                  method=method)
     params = kernel_params(params)
     fn = make_kernel_energy_fn(params, dev, torch.float32)
@@ -55,32 +56,70 @@ def _clustered_kernel_args(dev, g, seed=2, method="dfire", num_anm=0):
     return args[:-2] + (act, iface), kwargs
 
 
-@pytest.mark.parametrize("g", [37, 200])
-@pytest.mark.parametrize("with_near", [False, True])
-@pytest.mark.parametrize("need_iface", [True, False])
-def test_kernel_matches_plain(cuda, g, with_near, need_iface):
-    args, kwargs = _clustered_kernel_args(cuda, g)
+def _check_dfire_kernel(cuda, kernel, plain, g, with_near, need_iface, num_anm=0):
+    """A DFIRE kernel against its plain version on clustered poses; two
+    launches bit-equal."""
+    args, kwargs = _clustered_kernel_args(cuda, g, num_anm=num_anm)
+    assert args[0].shape[0] == (g if num_anm else 1)
     near = kwargs["near_chunks"]
     assert 0 < int(near.sum()) < near.numel()      # some chunk-tiles are far
     kw = dict(r_tile=kwargs["r_tile"], l_tile=kwargs["l_tile"],
               need_iface=need_iface, near_chunks=near if with_near else None)
-    before = dp.dfire_pairs.launches
-    out = dp.dfire_pairs(*args, **kw)
+    before = kernel.launches
+    out = kernel(*args, **kw)
     torch.cuda.synchronize()
-    assert dp.dfire_pairs.launches == before + 1
-    ref = dp.dfire_pairs_plain(*args, **kw)
+    assert kernel.launches == before + 1
+    ref = plain(*args, **kw)
     torch.testing.assert_close(out[0], ref[0], rtol=5e-5, atol=5e-5)
     if need_iface:
         assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
         assert out[1].sum() > 0 and out[2].sum() > 0
     else:
         assert out[1] is None and out[2] is None
-    again = dp.dfire_pairs(*args, **kw)
+    again = kernel(*args, **kw)
     assert torch.equal(again[0], out[0])          # deterministic sums
 
 
+@pytest.mark.parametrize("g", [37, 200])
+@pytest.mark.parametrize("with_near", [False, True])
+@pytest.mark.parametrize("need_iface", [True, False])
+def test_kernel_matches_plain(cuda, g, with_near, need_iface):
+    _check_dfire_kernel(cuda, dp.dfire_pairs, dp.dfire_pairs_plain, g,
+                        with_near, need_iface)
+
+
+@pytest.mark.parametrize("g", [37, 200])
+@pytest.mark.parametrize("num_anm", [0, 2])
+@pytest.mark.parametrize("with_near", [False, True])
+@pytest.mark.parametrize("need_iface", [True, False])
+def test_worklist_kernel_matches_plain(cuda, g, num_anm, with_near, need_iface):
+    """K2 against its plain version, rigid and per-pose receptor."""
+    _check_dfire_kernel(cuda, dp.dfire_pairs_worklist,
+                        dp.dfire_pairs_worklist_plain, g, with_near,
+                        need_iface, num_anm)
+
+
+@pytest.mark.parametrize("g", [37, 200])
+@pytest.mark.parametrize("need_iface", [True, False])
+def test_per_pose_receptor_kernel_matches_plain(cuda, g, need_iface):
+    """K1 with a (G, Nr, 3) receptor (receptor ANM) against plain."""
+    _check_dfire_kernel(cuda, dp.dfire_pairs, dp.dfire_pairs_plain, g, True,
+                        need_iface, num_anm=2)
+
+
+@pytest.mark.parametrize("kernel", ["dfire_pairs", "dfire_pairs_worklist"])
+def test_dfire_kernels_no_active_chunk(cuda, kernel):
+    """No active chunk (every pose unmoved): K2's list is empty; both
+    kernels give zero sums and no flags."""
+    args, kwargs = _clustered_kernel_args(cuda, 37, num_anm=2)
+    args = args[:3] + (torch.zeros_like(args[3]), torch.zeros_like(args[4]))
+    out = getattr(dp, kernel)(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert not out[0].any() and not out[1].any() and not out[2].any()
+
+
 def test_energy_fn_on_card_matches_cpu(cuda):
-    params, pos, _ = _toy_system(300, 170, 37, seed=4)
+    params, pos, _ = toy_system(300, 170, 37, seed=4)
     params = kernel_params(params)
     pose = [pos[:, :3], pos[:, 3:], np.zeros((37, 0)), np.zeros((37, 0))]
     out = {}
@@ -142,12 +181,29 @@ def test_elec_vdw_kernel_coincident_pair(cuda, lig_x, nan):
 
 
 def test_dna_anm_energy_fn_on_card_matches_cpu(cuda):
-    params, pos, _ = _toy_system(300, 170, 37, num_anm=2, seed=4, method="dna")
+    params, pos, _ = toy_system(300, 170, 37, num_anm=2, seed=4, method="dna")
     params = kernel_params(params)
     pose = [pos[:, :3], pos[:, 3:7], pos[:, 7:9], pos[:, 9:11]]
     out = {}
     for dev in ("cpu", cuda):
         fn = make_kernel_energy_fn(params, dev, torch.float32)
+        tp = torch_params(params, dev, torch.float32)
+        out[str(dev)] = fn(tp, *(torch.as_tensor(x, dtype=torch.float32,
+                                                 device=dev) for x in pose))
+    assert torch.isfinite(out["cuda"]).all()
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("worklist", [False, True])
+def test_dfire_anm_energy_fn_on_card_matches_cpu(cuda, worklist):
+    """DFIRE with ANM on both sides, through K1 or K2, on the card against
+    the CPU (the plain versions)."""
+    params, pos, _ = toy_system(300, 170, 37, num_anm=2, seed=4)
+    params = kernel_params(params)
+    pose = [pos[:, :3], pos[:, 3:7], pos[:, 7:9], pos[:, 9:11]]
+    out = {}
+    for dev in ("cpu", cuda):
+        fn = make_kernel_energy_fn(params, dev, torch.float32, worklist=worklist)
         tp = torch_params(params, dev, torch.float32)
         out[str(dev)] = fn(tp, *(torch.as_tensor(x, dtype=torch.float32,
                                                  device=dev) for x in pose))

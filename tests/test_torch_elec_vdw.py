@@ -33,7 +33,8 @@ from lightdock_tpu.scoring.potentials import synthetic_potential  # noqa: E402
 from lightdock_tpu_torch.engine import energy_dense as ed  # noqa: E402
 from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     frame_center, kernel_params, make_kernel_energy_fn)
-from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
+from lightdock_tpu_torch.engine.params import (  # noqa: E402
+    from_reference, torch_params)
 from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
 from lightdock_tpu_torch.ops.dfire_pairs import POSE_BLOCK  # noqa: E402
 from lightdock_tpu_torch.ops.tiling import spatial_sort_params  # noqa: E402
@@ -92,7 +93,7 @@ def test_dense_matches_batch_energy(method, num_anm, dtype, tol):
     params, pose = _system(method, num_anm, dtype)
     ref = batch_energy(device_params(params, dtype), *_jax(pose), xp=jnp)
     tdtype = torch.float64 if dtype == np.float64 else torch.float32
-    tp = torch_params(params, "cpu", tdtype)
+    tp = torch_params(from_reference(params), "cpu", tdtype)
     out = ed.batch_energy(tp, *_torch(pose))
     assert out.dtype == tdtype and out.shape == (pose[0].shape[0],)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **tol)
@@ -107,7 +108,7 @@ def _kernel_inputs(g, per_pose, seed=9, r_tile=32, l_tile=128):
     the same way.  Poses are clustered by chunk so that some chunk-tiles
     are far; near bits are truthful at the 10 A vdw reach."""
     params, pose = _system(g=g, spread=20)
-    params = spatial_sort_params(params, r_tile, l_tile)
+    params = spatial_sort_params(from_reference(params), r_tile, l_tile)
     c = frame_center(params).astype(np.float32)
     rng = np.random.RandomState(seed)
     n_c = -(-g // POSE_BLOCK)
@@ -182,7 +183,7 @@ def _both_fns(params, cull=True):
     # jit: one compile of the interpreted kernel instead of eager tracing.
     jfn = jax.jit(make_pallas_energy_fn(params, interpret=True, cull=cull,
                                         kernel="v2"))
-    kparams = kernel_params(params)
+    kparams = kernel_params(from_reference(params))
     tfn = make_kernel_energy_fn(kparams, "cpu", torch.float32, cull=cull)
     return (jfn, device_params(params, np.float32),
             tfn, torch_params(kparams, "cpu", torch.float32))
@@ -225,7 +226,7 @@ def test_energy_fn_matches_dense_f64():
     """At f64 the kernel path (plain version) and the dense oracle agree
     to rounding, receptor and ligand ANM included."""
     params, pose = _system("dna", 2, np.float64)
-    params = kernel_params(params)
+    params = kernel_params(from_reference(params))
     tp = torch_params(params, "cpu", torch.float64)
     tfn = make_kernel_energy_fn(params, "cpu", torch.float64)
     np.testing.assert_allclose(tfn(tp, *_torch(pose)).numpy(),
@@ -233,16 +234,20 @@ def test_energy_fn_matches_dense_f64():
 
 
 def test_dfire_ligand_anm_matches_pallas():
-    """DFIRE with ANM on the ligand alone runs the unchanged DFIRE kernel on
-    per-pose ligands; receptor ANM is refused."""
+    """DFIRE with ANM on the ligand alone runs K1 on per-pose ligands and
+    a rigid receptor; with ANM on both sides K1 takes a per-pose receptor.
+    Both match the JAX kernel path."""
     params, pose = _system("dfire", 2, rec_anm=False)
     params = ensure_dfire_types(params)
     jfn, jp, tfn, tp = _both_fns(params)
     np.testing.assert_allclose(tfn(tp, *_torch(pose)).numpy(),
                                np.asarray(jfn(jp, *_jax(pose))), **TOL)
-    both, _ = _system("dfire", 2)
-    with pytest.raises(NotImplementedError, match="receptor ANM"):
-        make_kernel_energy_fn(ensure_dfire_types(both), "cpu")
+    assert tfn.kernel_args(tp, *_torch(pose))[0][0].shape[0] == 1
+    both, pose = _system("dfire", 2)
+    jfn, jp, tfn, tp = _both_fns(ensure_dfire_types(both))
+    assert tfn.kernel_args(tp, *_torch(pose))[0][0].shape[0] == pose[0].shape[0]
+    np.testing.assert_allclose(tfn(tp, *_torch(pose)).numpy(),
+                               np.asarray(jfn(jp, *_jax(pose))), **TOL)
 
 
 def test_elec_vdw_micro_oracle():
@@ -265,7 +270,7 @@ def test_elec_vdw_micro_oracle():
     params = build_batch_params(rec, lig, use_anm=False, dtype=np.float64)
     zeros = torch.zeros((1, 0), dtype=torch.float64)
     fast = float(ed.batch_energy(
-        torch_params(params, "cpu", torch.float64),
+        torch_params(from_reference(params), "cpu", torch.float64),
         torch.zeros((1, 3), dtype=torch.float64),
         torch.tensor([[1.0, 0, 0, 0]], dtype=torch.float64), zeros, zeros)[0])
     total_elec = total_vdw = 0.0
@@ -307,7 +312,7 @@ def test_elec_vdw_coincident_pair(dtype):
         params = build_batch_params(model([[0.0, 0.0, 0.0]]),
                                     model([[lig_x, 0.0, 0.0]]),
                                     use_anm=False, dtype=np_dtype)
-        tp = torch_params(params, "cpu", dtype)
+        tp = torch_params(from_reference(params), "cpu", dtype)
         dense = float(ed.batch_energy(tp, t, q, zeros, zeros)[0])
         raw, _, _ = ev.elec_vdw_pairs(
             tp.rec_coords[None], tp.lig_coords.T[None], tp.ele_rec, tp.ele_lig,

@@ -30,7 +30,8 @@ from lightdock_tpu.scoring.potentials import synthetic_potential  # noqa: E402
 from lightdock_tpu_torch.engine import energy_dense as ed  # noqa: E402
 from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     frame_center, make_kernel_energy_fn)
-from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
+from lightdock_tpu_torch.engine.params import (  # noqa: E402
+    from_reference, torch_params)
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
 from lightdock_tpu_torch.ops.tiling import spatial_sort_params  # noqa: E402
 
@@ -79,7 +80,8 @@ def test_dense_matches_batch_energy(dtype, dfire_mode, tol):
     params, pose = _system(dtype, dfire_mode)
     ref = batch_energy(device_params(params, dtype), *_jax(pose), xp=jnp)
     tdtype = torch.float64 if dtype == np.float64 else torch.float32
-    out = ed.batch_energy(torch_params(params, "cpu", tdtype), *_torch(pose))
+    out = ed.batch_energy(torch_params(from_reference(params), "cpu", tdtype),
+                          *_torch(pose))
     assert out.dtype == tdtype and out.shape == (pose[0].shape[0],)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **tol)
 
@@ -88,7 +90,8 @@ def _kernel_inputs(g=37, seed=9, r_tile=32, l_tile=128, p_block=dp.POSE_BLOCK):
     """Re-centred coordinates, type tables and seeded cull bits, padded
     nowhere: both kernels pad them the same way."""
     params, pose = _system(g=g)
-    params = spatial_sort_params(ensure_dfire_types(params), r_tile, l_tile)
+    params = spatial_sort_params(from_reference(ensure_dfire_types(params)),
+                                 r_tile, l_tile)
     c = frame_center(params).astype(np.float32)
     rng = np.random.RandomState(seed)
     # Poses clustered by chunk, so some chunk-tiles are far and some near.
@@ -162,7 +165,7 @@ def test_dfire_tables_are_the_cumulative_potential():
     and padded ligand atoms read a zero column."""
     params, _ = _system()
     params = ensure_dfire_types(params)
-    tp = torch_params(params, "cpu", torch.float32)
+    tp = torch_params(from_reference(params), "cpu", torch.float32)
     tables = dp.dfire_tables(tp.dfire_rec_half, tp.dfire_lig_onehot,
                              params.dfire_thresholds, 32, 128)
     nr, nl = params.rec_coords.shape[0], params.lig_coords.shape[0]
@@ -181,9 +184,10 @@ def _both_fns(params, cull=True):
     # jit: one compile of the interpreted kernel instead of eager tracing.
     jfn = jax.jit(make_pallas_energy_fn(params, interpret=True, cull=cull,
                                         kernel="v2"))
-    tfn = make_kernel_energy_fn(params, "cpu", torch.float32, cull=cull)
+    ours = from_reference(params)
+    tfn = make_kernel_energy_fn(ours, "cpu", torch.float32, cull=cull)
     return (jfn, device_params(params, np.float32),
-            tfn, torch_params(params, "cpu", torch.float32))
+            tfn, torch_params(ours, "cpu", torch.float32))
 
 
 def test_energy_fn_matches_pallas_far_bits():
@@ -242,7 +246,7 @@ def test_energy_fn_matches_dense_f64():
     """At f64 the kernel path (plain version) and the dense oracle agree
     to rounding."""
     params, pose = _system(np.float64, "gather")
-    params = ensure_dfire_types(params)
+    params = from_reference(ensure_dfire_types(params))
     tp = torch_params(params, "cpu", torch.float64)
     tfn = make_kernel_energy_fn(params, "cpu", torch.float64)
     np.testing.assert_allclose(tfn(tp, *_torch(pose)).numpy(),
@@ -251,13 +255,21 @@ def test_energy_fn_matches_dense_f64():
 
 
 def test_kernel_path_refuses_what_it_does_not_run():
-    params, _ = _system()
-    params = ensure_dfire_types(params)
+    """DFIRE without the type-indexed tables, the work list for another
+    method, and a device other than cpu or cuda are refused; DFIRE with
+    receptor ANM runs through K1."""
     import dataclasses
-    anm = dataclasses.replace(params, use_anm=True,
+    params, _ = _system()
+    ours = from_reference(params)
+    with pytest.raises(ValueError, match="type-indexed"):
+        make_kernel_energy_fn(ours, "cpu")
+    anm = dataclasses.replace(from_reference(ensure_dfire_types(params)),
+                              use_anm=True,
                               rec_nmodes=np.ones((2, 300, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="receptor ANM"):
-        make_kernel_energy_fn(anm, "cpu")
+    assert make_kernel_energy_fn(anm, "cpu").kernel is dp.dfire_pairs
+    dna = dataclasses.replace(anm, method="dna")
+    with pytest.raises(ValueError, match="DFIRE only"):
+        make_kernel_energy_fn(dna, "cpu", worklist=True)
     with pytest.raises(ValueError, match="cpu or cuda"):
         dp.dfire_pairs(torch.zeros(1, 8, 3, device="meta"),
                        torch.zeros(2, 3, 8, device="meta"), None, None, None,
@@ -288,7 +300,8 @@ def test_dfire_binning_micro_oracle(dfire_mode):
                                 potential=pot, dfire_mode=dfire_mode)
     one = dict(dtype=torch.float64)
     zeros = torch.zeros((1, 0), **one)
-    fast = float(ed.batch_energy(torch_params(params, "cpu", torch.float64),
+    fast = float(ed.batch_energy(torch_params(from_reference(params), "cpu",
+                                              torch.float64),
                                  torch.zeros((1, 3), **one),
                                  torch.tensor([[1.0, 0, 0, 0]], **one),
                                  zeros, zeros)[0])

@@ -1,0 +1,227 @@
+"""The port's copies of the host layer equal their originals on the same
+inputs: constants, tables, potentials, the docking-model record, the
+parameter builder and ``from_reference``, the random stream, the snapshot
+text and sidecars, the split of pose rows, and the stand-in systems."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import __graft_entry__  # noqa: E402
+from lightdock_tpu import constants as jc  # noqa: E402
+from lightdock_tpu.engine import energy_batch as eb  # noqa: E402
+from lightdock_tpu.scoring import models as jmodels  # noqa: E402
+from lightdock_tpu.scoring import potentials as jpot  # noqa: E402
+from lightdock_tpu.scoring import tables as jtables  # noqa: E402
+from lightdock_tpu.utils import output as jout  # noqa: E402
+from lightdock_tpu.utils import positions as jpos  # noqa: E402
+from lightdock_tpu.utils import rng as jrng  # noqa: E402
+from lightdock_tpu_torch import constants as tc  # noqa: E402
+from lightdock_tpu_torch import standin  # noqa: E402
+from lightdock_tpu_torch.engine import params as tparams  # noqa: E402
+from lightdock_tpu_torch.engine.energy_kernel import kernel_params  # noqa: E402
+from lightdock_tpu_torch.scoring import models as tmodels  # noqa: E402
+from lightdock_tpu_torch.scoring import potentials as tpot  # noqa: E402
+from lightdock_tpu_torch.scoring import tables as ttables  # noqa: E402
+from lightdock_tpu_torch.utils import output as tout  # noqa: E402
+from lightdock_tpu_torch.utils import positions as tpos  # noqa: E402
+from lightdock_tpu_torch.utils import rng as trng  # noqa: E402
+
+FIELDS = [f.name for f in dataclasses.fields(eb.BatchScoringParams)]
+
+
+def _assert_params_equal(ours, ref, skip=()):
+    assert [f.name for f in dataclasses.fields(tparams.BatchScoringParams)] == FIELDS
+    for name in FIELDS:
+        if name in skip:
+            continue
+        a, b = getattr(ours, name), getattr(ref, name)
+        if b is None or isinstance(b, (str, bool, int)):
+            assert a == b, name
+        else:
+            assert isinstance(a, np.ndarray) and a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_constants_match():
+    names = [n for n in dir(jc) if n.isupper()]
+    assert names and names == [n for n in dir(tc) if n.isupper()]
+    for n in names:
+        assert getattr(tc, n) == getattr(jc, n), n
+
+
+def test_tables_and_potentials_match(tmp_path):
+    ours, ref = ttables.dfire_tables(), jtables.dfire_tables()
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(np.asarray(ours[k]), np.asarray(ref[k]))
+    for method in ("dna", "pydock"):
+        assert ttables.amber_tables(method) == jtables.amber_tables(method)
+    pot = tpot.synthetic_potential()
+    np.testing.assert_array_equal(pot, jpot.synthetic_potential())
+    for bins in (32, 20):
+        np.testing.assert_array_equal(tpot.potential_by_bins(pot, bins),
+                                      jpot.potential_by_bins(pot, bins))
+    path = tmp_path / "DCparams"
+    np.savetxt(path, pot[:tpot.TABLE_SIZE] * 0.25)
+    np.testing.assert_array_equal(tpot.load_potential(path),
+                                  jpot.load_potential(path))
+    with pytest.raises(FileNotFoundError):
+        tpot.load_potential(tmp_path / "absent", allow_synthetic=False)
+
+
+def _models(module, method, num_anm, seed):
+    rng = np.random.RandomState(seed)
+
+    def model(n):
+        kw = {}
+        if method == "dfire":
+            kw["atom_types"] = rng.randint(0, 168, size=n).astype(np.int32)
+        else:
+            kw.update(ele_charges=rng.uniform(-1, 1, n),
+                      vdw_charges=rng.uniform(0, 0.5, n),
+                      vdw_radii=rng.uniform(0.5, 2.5, n))
+        return module.DockingModel(
+            method=method, coordinates=rng.uniform(-15, 15, (n, 3)),
+            num_anm=num_anm, nmodes=rng.standard_normal((num_anm, n, 3)),
+            membrane=np.array([3, 4, 9], dtype=np.int64),
+            active_restraints={"B.7": [5, 6], "A.1": [0, 2]},
+            passive_restraints={"A.3": [1]}, **kw)
+
+    return model(40), model(23)
+
+
+@pytest.mark.parametrize("method,mode,num_anm,dtype", [
+    ("dfire", "gather", 0, np.float64),
+    ("dfire", "types", 2, np.float32),
+    ("dfire", "auto", 0, np.float64),
+    ("dna", "auto", 2, np.float32),
+    ("pydock", "auto", 0, np.float64),
+])
+def test_build_batch_params_matches(method, mode, num_anm, dtype):
+    """Field by field, with a membrane and restraints on both sides."""
+    rec, lig = _models(tmodels, method, num_anm, seed=4)
+    jrec, jlig = _models(jmodels, method, num_anm, seed=4)
+    for a, b in ((rec, jrec), (lig, jlig)):
+        for x, y in zip(a.restraint_segments(), b.restraint_segments()):
+            np.testing.assert_array_equal(x, y)
+    pot = tpot.synthetic_potential()
+    kw = dict(use_anm=num_anm > 0, dtype=dtype,
+              potential=pot if method == "dfire" else None)
+    ours = tparams.build_batch_params(rec, lig, dfire_mode=mode, **kw)
+    ref = eb.build_batch_params(jrec, jlig, dfire_mode=mode, **kw)
+    assert ours.dfire_dq is None
+    _assert_params_equal(ours, ref, skip=("dfire_dq", "dfire_thresholds")
+                         if ref.dfire_dq is not None else ())
+    if method == "dfire":
+        _assert_params_equal(tparams.ensure_dfire_types(ours),
+                             eb.ensure_dfire_types(ref), skip=("dfire_dq",))
+        np.testing.assert_array_equal(
+            tparams.dfire_bin_thresholds(ours.dist_to_bins),
+            eb.dfire_bin_thresholds(ref.dist_to_bins))
+        for x, y in zip(tparams.dfire_type_tables(ours.atom_types_rec,
+                                                  ours.atom_types_lig, pot,
+                                                  ours.dist_to_bins),
+                        eb.dfire_type_tables(ref.atom_types_rec,
+                                             ref.atom_types_lig, pot,
+                                             ref.dist_to_bins)):
+            np.testing.assert_array_equal(x, y)
+    with pytest.raises(ValueError, match="dfire_mode"):
+        tparams.build_batch_params(*_models(tmodels, "dfire", 0, 1),
+                                   use_anm=False, dfire_mode="steps",
+                                   potential=pot)
+
+
+def test_from_reference():
+    """A JAX-built params (with the step form's dq) becomes the port's
+    dataclass with every field equal; the port's own params survive it."""
+    rec, lig = _models(jmodels, "dfire", 2, seed=6)
+    ref = eb.build_batch_params(rec, lig, use_anm=True, dtype=np.float32,
+                                potential=jpot.synthetic_potential(),
+                                dfire_mode="steps")
+    ours = tparams.from_reference(ref)
+    assert type(ours) is tparams.BatchScoringParams
+    _assert_params_equal(ours, ref)
+    assert ours.dfire_dq is not None and ours.dfire_dq.shape[1:] == (40, 23)
+    again = tparams.from_reference(ours)
+    _assert_params_equal(again, ref)
+
+
+@pytest.mark.parametrize("seed,n", [(324324, 1), (324324, 4000), (7, 37)])
+def test_uniform_f64_stream_matches(seed, n):
+    np.testing.assert_array_equal(trng.uniform_f64_stream(seed, n),
+                                  jrng.uniform_f64_stream(seed, n))
+
+
+def test_gso_output_matches(tmp_path):
+    rng = np.random.RandomState(5)
+    g = 13
+    poses = rng.standard_normal((g, 11)) * 10
+    luc = rng.uniform(0, 20, g)
+    nn = rng.randint(0, 6, g)
+    vis = rng.uniform(0, 5, g)
+    sco = rng.standard_normal(g) * 100
+    text = tout.format_gso_output(poses, luc, nn, vis, sco)
+    assert text == jout.format_gso_output(poses, luc, nn, vis, sco)
+    tout.write_gso_output(tmp_path / "a.out", poses, luc, nn, vis, sco)
+    jout.write_gso_output(tmp_path / "b.out", poses, luc, nn, vis, sco)
+    assert (tmp_path / "a.out").read_text() == (tmp_path / "b.out").read_text()
+    # Sidecars written by either package read back the same in the other.
+    tout.write_state_sidecar(tmp_path / "a.out", 10, t=poses[:, :3], vision=vis)
+    jout.write_state_sidecar(tmp_path / "b.out", 10, t=poses[:, :3], vision=vis)
+    for path in (tmp_path / "a.out", tmp_path / "b.out"):
+        ours, ref = tout.read_state_sidecar(path), jout.read_state_sidecar(path)
+        assert ours[0] == ref[0] == 10 and ours[1].keys() == ref[1].keys()
+        for k in ref[1]:
+            np.testing.assert_array_equal(ours[1][k], ref[1][k])
+    assert tout.read_state_sidecar(tmp_path / "none.out") is None
+
+
+@pytest.mark.parametrize("use_anm,anm_rec,anm_lig", [(False, 0, 0), (True, 2, 3),
+                                                     (True, 0, 2)])
+def test_split_positions_matches(use_anm, anm_rec, anm_lig):
+    rows = np.random.RandomState(1).standard_normal((9, 7 + anm_rec + anm_lig))
+    for a, b in zip(tpos.split_positions(rows, use_anm, anm_rec, anm_lig),
+                    jpos.split_positions(rows, use_anm, anm_rec, anm_lig)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("method,num_anm,seed", [("dfire", 0, 0), ("dfire", 2, 4),
+                                                 ("dna", 3, 1)])
+def test_toy_system_matches_graft_entry(method, num_anm, seed):
+    """The stand-in reproduces ``__graft_entry__._toy_system`` from the
+    same seed: the same positions and, as the kernel path takes them, the
+    same params (the JAX one also builds the step form's dq, which the
+    port never builds)."""
+    ours, pos, k = standin.toy_system(60, 30, 9, num_anm=num_anm, seed=seed,
+                                      method=method)
+    ref, rpos, rk = __graft_entry__._toy_system(60, 30, 9, num_anm=num_anm,
+                                                seed=seed, method=method)
+    assert k == rk
+    np.testing.assert_array_equal(pos, rpos)
+    _assert_params_equal(ours, ref, skip=("dfire_dq", "dfire_thresholds",
+                                          "dfire_rec_half", "dfire_lig_onehot"))
+    _assert_params_equal(kernel_params(ours),
+                         kernel_params(tparams.from_reference(ref)))
+
+
+def test_membrane_system():
+    """The 1k4c-shaped stand-in at a small size: a membrane slab on the
+    receptor, one restraint on each side, no ANM, and one swarm within 5 A
+    of the point 40 A above the receptor's centre."""
+    params, pos = standin.membrane_system(50, n_rec=400, n_lig=300, seed=2)
+    rec = params.rec_coords
+    assert params.method == "dfire" and not params.use_anm
+    assert params.dfire_rec_half is not None and params.dfire_dq is None
+    slab = rec[:, 2] > standin.MEMBRANE_SLAB_Z
+    np.testing.assert_array_equal(params.rec_membrane_mask, slab.astype(np.float32))
+    assert params.rec_num_membrane == slab.sum() > 0
+    assert params.rec_res_onehot.shape == (1, 400)
+    assert params.lig_res_onehot.shape == (1, 300)
+    centre = rec.astype(np.float64).mean(axis=0) + [0, 0, standin.SWARM_DISTANCE]
+    assert pos.shape == (50, 7)
+    assert (np.linalg.norm(pos[:, :3] - centre, axis=1) <= standin.SWARM_RADIUS).all()
+    np.testing.assert_allclose(np.linalg.norm(pos[:, 3:], axis=1), 1.0)

@@ -1,6 +1,7 @@
-"""The PyTorch port imports no JAX, and its GPU smoke run refuses to run
-without a GPU or outside a checkout."""
+"""The PyTorch port imports neither JAX nor the JAX package, and its GPU
+smoke run refuses to run without a GPU or outside a checkout."""
 
+import ast
 import os
 import pathlib
 import subprocess
@@ -14,6 +15,15 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 PORT_MODULES = [
     "lightdock_tpu_torch",
+    "lightdock_tpu_torch.constants",
+    "lightdock_tpu_torch.scoring",
+    "lightdock_tpu_torch.scoring.tables",
+    "lightdock_tpu_torch.scoring.potentials",
+    "lightdock_tpu_torch.scoring.models",
+    "lightdock_tpu_torch.utils",
+    "lightdock_tpu_torch.utils.rng",
+    "lightdock_tpu_torch.utils.output",
+    "lightdock_tpu_torch.utils.positions",
     "lightdock_tpu_torch.ops.quaternion",
     "lightdock_tpu_torch.ops.tiling",
     "lightdock_tpu_torch.ops.cull",
@@ -25,23 +35,43 @@ PORT_MODULES = [
     "lightdock_tpu_torch.engine.energy_kernel",
     "lightdock_tpu_torch.engine.gso",
     "lightdock_tpu_torch.engine.runner",
+    "lightdock_tpu_torch.standin",
 ]
+
+FORBIDDEN = ("jax", "lightdock_tpu", "__graft_entry__")
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
 def test_port_never_imports_jax():
-    """Neither the port nor the stand-in system that the GPU smoke run
-    builds imports jax."""
+    """After importing every port module and building the stand-in systems
+    (and a kernel energy path on them), no ``jax``, no ``lightdock_tpu`` or
+    ``lightdock_tpu.*`` and no ``__graft_entry__`` is in ``sys.modules``;
+    ``chip_smoke.py`` imports none of them."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "from __graft_entry__ import _toy_system\n"
-            "_toy_system(8, 4, 2)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "from lightdock_tpu_torch import standin\n"
+            "from lightdock_tpu_torch.engine.energy_kernel import (\n"
+            "    kernel_params, make_kernel_energy_fn)\n"
+            "params, _, _ = standin.toy_system(8, 4, 2)\n"
+            "standin.toy_system(8, 4, 2, num_anm=2, method='dna')\n"
+            "standin.membrane_system(2, n_rec=40, n_lig=30)\n"
+            "make_kernel_energy_fn(kernel_params(params), 'cpu')\n"
+            f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("0 []"), proc.stdout
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    imported = [alias.name for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for alias in node.names]
+    imported += [node.module for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and node.module and node.level == 0]
+    assert imported and not [m for m in imported if _forbidden(m)], imported
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

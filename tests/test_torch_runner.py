@@ -11,7 +11,9 @@ from lightdock_tpu.engine.energy_batch import build_batch_params  # noqa: E402
 from lightdock_tpu.engine.gso_jax import GsoJaxRunner  # noqa: E402
 from lightdock_tpu.scoring.models import DockingModel  # noqa: E402
 from lightdock_tpu.scoring.potentials import synthetic_potential  # noqa: E402
+from lightdock_tpu_torch.engine import energy_kernel  # noqa: E402
 from lightdock_tpu_torch.engine.gso import SwarmState  # noqa: E402
+from lightdock_tpu_torch.engine.params import from_reference  # noqa: E402
 from lightdock_tpu_torch.engine.runner import GsoTorchRunner  # noqa: E402
 
 
@@ -54,7 +56,7 @@ def test_runner_matches_jax_runner_text(tmp_path):
                        anm_lig=0, output_directory=str(tmp_path / "jax"),
                        dtype=jnp.float64, energy_mode="xla")
     ref.run(10)
-    port = GsoTorchRunner(params, pos, seed=324324, use_anm=False, anm_rec=0,
+    port = GsoTorchRunner(from_reference(params), pos, seed=324324, use_anm=False, anm_rec=0,
                           anm_lig=0, output_directory=str(tmp_path / "torch"),
                           dtype=torch.float64, device="cpu")
     final, outs = port.run(10)
@@ -68,11 +70,13 @@ def test_runner_matches_jax_runner_text(tmp_path):
 
 def test_run_segmented_matches_run(tmp_path):
     params, pos = _toy(8, dtype=np.float32)
-    mono = GsoTorchRunner(params, pos, seed=11, use_anm=False, anm_rec=0,
-                          anm_lig=0, output_directory=str(tmp_path / "mono"))
+    mono = GsoTorchRunner(from_reference(params), pos, seed=11, use_anm=False, anm_rec=0,
+                          anm_lig=0, output_directory=str(tmp_path / "mono"),
+                          device="cpu")
     mono_final, _ = mono.run(20)
-    seg = GsoTorchRunner(params, pos, seed=11, use_anm=False, anm_rec=0,
-                         anm_lig=0, output_directory=str(tmp_path / "seg"))
+    seg = GsoTorchRunner(from_reference(params), pos, seed=11, use_anm=False, anm_rec=0,
+                         anm_lig=0, output_directory=str(tmp_path / "seg"),
+                         device="cpu")
     seg_final, _ = seg.run_segmented(20, 7)   # deliberately misaligned
     for a, b in zip(seg_final, mono_final):
         assert torch.equal(a, b)
@@ -95,7 +99,7 @@ def test_runner_matches_jax_runner_text_dna_anm(tmp_path):
                        anm_lig=2, output_directory=str(tmp_path / "jax"),
                        dtype=jnp.float64, energy_mode="xla")
     ref.run(10)
-    port = GsoTorchRunner(params, pos, seed=324324, use_anm=True, anm_rec=2,
+    port = GsoTorchRunner(from_reference(params), pos, seed=324324, use_anm=True, anm_rec=2,
                           anm_lig=2, output_directory=str(tmp_path / "torch"),
                           dtype=torch.float64, device="cpu")
     final, outs = port.run(10)
@@ -110,10 +114,10 @@ def test_runner_matches_jax_runner_text_dna_anm(tmp_path):
 
 def test_sidecar_resume_is_bit_exact_dna_anm(tmp_path):
     params, pos = _toy(6, dtype=np.float32, method="pydock", num_anm=2)
-    kw = dict(seed=4, use_anm=True, anm_rec=2, anm_lig=2)
-    full = GsoTorchRunner(params, pos, output_directory=str(tmp_path / "full"), **kw)
+    kw = dict(seed=4, use_anm=True, anm_rec=2, anm_lig=2, device="cpu")
+    full = GsoTorchRunner(from_reference(params), pos, output_directory=str(tmp_path / "full"), **kw)
     full_final, _ = full.run(20)
-    resumed = GsoTorchRunner(params, pos, output_directory=str(tmp_path / "res"), **kw)
+    resumed = GsoTorchRunner(from_reference(params), pos, output_directory=str(tmp_path / "res"), **kw)
     resumed.load_snapshot(tmp_path / "full" / "gso_10.out")
     res_final, _ = resumed.run(20)
     for name, a, b in zip(SwarmState._fields, res_final, full_final):
@@ -124,11 +128,13 @@ def test_sidecar_resume_is_bit_exact_dna_anm(tmp_path):
 
 def test_sidecar_resume_is_bit_exact(tmp_path):
     params, pos = _toy(5, dtype=np.float32)
-    full = GsoTorchRunner(params, pos, seed=3, use_anm=False, anm_rec=0,
-                          anm_lig=0, output_directory=str(tmp_path / "full"))
+    full = GsoTorchRunner(from_reference(params), pos, seed=3, use_anm=False, anm_rec=0,
+                          anm_lig=0, output_directory=str(tmp_path / "full"),
+                          device="cpu")
     full_final, _ = full.run(20)
-    resumed = GsoTorchRunner(params, pos, seed=3, use_anm=False, anm_rec=0,
-                             anm_lig=0, output_directory=str(tmp_path / "res"))
+    resumed = GsoTorchRunner(from_reference(params), pos, seed=3, use_anm=False, anm_rec=0,
+                             anm_lig=0, output_directory=str(tmp_path / "res"),
+                             device="cpu")
     resumed.load_snapshot(tmp_path / "full" / "gso_10.out")
     assert resumed._start_step == 10
     res_final, _ = resumed.run(20)
@@ -145,5 +151,42 @@ def test_cuda_runner_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params, pos = _toy(1, dtype=np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
-        GsoTorchRunner(params, pos, seed=1, use_anm=False, anm_rec=0,
+        GsoTorchRunner(from_reference(params), pos, seed=1, use_anm=False, anm_rec=0,
                        anm_lig=0, device="cuda")
+
+
+@pytest.mark.parametrize("worklist", [False, True])
+def test_runner_matches_jax_runner_text_dfire_anm(tmp_path, monkeypatch, worklist):
+    """f64 on CPU, DFIRE with two ANM modes on each side (K1 with a
+    per-pose receptor, or the work-list K2, forced by lowering the rule's
+    threshold): gso_1.out and gso_10.out text-identical to GsoJaxRunner on
+    the XLA path."""
+    if worklist:
+        monkeypatch.setattr(energy_kernel, "WORKLIST_MIN_TILES", 1)
+    params, pos = _toy(13, num_anm=2)
+    ref = GsoJaxRunner(params, pos, seed=324324, use_anm=True, anm_rec=2,
+                       anm_lig=2, output_directory=str(tmp_path / "jax"),
+                       dtype=jnp.float64, energy_mode="xla")
+    ref.run(10)
+    port = GsoTorchRunner(from_reference(params), pos, seed=324324,
+                          use_anm=True, anm_rec=2, anm_lig=2,
+                          output_directory=str(tmp_path / "torch"),
+                          dtype=torch.float64, device="cpu")
+    assert port.energy_fn.kernel.__name__ == ("dfire_pairs_worklist" if worklist
+                                              else "dfire_pairs")
+    final, outs = port.run(10)
+    assert not torch.equal(final.a_rec, torch.as_tensor(pos[:, 7:9]))  # modes moved
+    for step in (1, 10):
+        a = (tmp_path / "jax" / f"gso_{step}.out").read_text()
+        b = (tmp_path / "torch" / f"gso_{step}.out").read_text()
+        assert a == b, f"gso_{step}.out differs"
+
+
+def test_runner_defaults_to_the_card(monkeypatch):
+    """Without a device the runner runs on the card, and raises where torch
+    sees none instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params, pos = _toy(2, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GsoTorchRunner(from_reference(params), pos, seed=1, use_anm=False,
+                       anm_rec=0, anm_lig=0)

@@ -12,6 +12,7 @@ from lightdock_tpu.engine import energy_pallas as ep  # noqa: E402
 from lightdock_tpu.engine.energy_batch import ensure_dfire_types  # noqa: E402
 from lightdock_tpu.ops import pallas_energy as pe  # noqa: E402
 from lightdock_tpu.ops import quaternion as jqt  # noqa: E402
+from lightdock_tpu_torch.engine.params import from_reference  # noqa: E402
 from lightdock_tpu_torch.ops import cull, tiling  # noqa: E402
 
 
@@ -56,7 +57,8 @@ def test_small_helpers_match():
 def test_spatial_sort_params_matches():
     params, _, _ = _toy_system(300, 170, 5, seed=2)
     params = ensure_dfire_types(params)
-    ours = tiling.spatial_sort_params(params, r_tile=32, l_tile=128)
+    ours = tiling.spatial_sort_params(from_reference(params), r_tile=32,
+                                      l_tile=128)
     ref = ep.spatial_sort_params(params, order="rcb", r_tile=32, l_tile=128)
     for name in ("rec_coords", "lig_coords", "rec_res_onehot", "lig_res_onehot",
                  "rec_membrane_mask", "atom_types_rec", "atom_types_lig",
