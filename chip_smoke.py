@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``lightdock_tpu_torch/csrc`` with nvcc (one
-process per source, all at once), then drives three paths, each on a
-stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
+process per source, all at once), then drives five paths and a farm, each
+on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions and the kernel build times;
@@ -56,11 +56,44 @@ stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
 12. times K2 at G = 200 (CUDA events), its compaction, pair and second
     passes alone (torch.profiler), K1 on the same inputs, K1 with the
     per-pose receptor of phase 9, the plain version, and phases 4 and 5
-    for the 1k4c path.
+    for the 1k4c path;
+13. holds the step-form DFIRE kernel (K4, the v1 mode) against its plain
+    version at the 1ppe shapes with the step tables: 200 and 37 poses,
+    with and without the moved gate, clustered poses with culled
+    tile-poses with and without interface flags, and the step tables in
+    bfloat16; raw sums to 5e-5, flags exactly, two launches bit-equal;
+14. runs the 1ppe v1 DFIRE path, ``GsoTorchRunner(energy_mode=
+    'kernel_v1')`` for 100 steps through ``run_segmented(100, 10)``: one
+    K4 launch and no other kernel's a step, the snapshots, finite scores,
+    the step-1 scores against the dense step-form oracle (5e-5); then
+    phases 4 and 5 for it and K4;
+15. holds the v1 elec/vdw kernel (K5) against its plain version at the
+    1azp shapes with a rigid and a per-pose receptor (the cases of phase
+    13 without bfloat16) and on the coincident pair (NaN in both), then
+    runs the 1azp DNA + ANM v1 path for 100 steps (one K5 launch a step,
+    the oracle) and phases 4 and 5 for it and K5;
+16. runs the farm: ``SwarmFarmRunner`` with 32 swarms x 200 glowworms on
+    the 1ppe DFIRE stand-in (``energy_mode='kernel'``) for 100 steps
+    through ``run_segmented(100, 10)``, writing 32 swarm directories: 100
+    K1 launches in all, finite scores; K1 against its plain version on the
+    farm's step-1 inputs (6,400 poses in one call, with and without the
+    moved gate; rtol 5e-5 with the absolute floor ``REORDER_ATOL``, flags
+    exactly); swarms 0 and 31 run alone for 10
+    steps from the same positions (``GsoTorchRunner``) match the farm's
+    step-1 scores (5e-5), and it reports over how many of the 10 steps
+    their neighbour counts agree and whether the gso_1 and gso_10 text is
+    byte-identical (sums over other pose batches may round apart); times
+    the 100 steps (min of 5, reset before each) as aggregate poses/s and
+    profiles steps 11-30;
+17. runs 4 swarms of the farm for 10 steps in ``energy_mode='kernel_v1'``:
+    one K4 launch a step, step-1 scores equal to the kernel-mode farm's
+    (5e-5); K4 against its plain version on these 800 poses as phase 16
+    holds K1.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its f32 operations over
-67 TFLOP/s) is computed from the inputs of its timed call.
+67 TFLOP/s) is computed from the inputs of its timed call, counting the
+pair-poses of real atoms and poses only.
 
 Fails with a non-zero exit and no result line when there is no CUDA
 device, when it is not run from a checkout, or when any check fails.  The
@@ -94,6 +127,12 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # elec product, mask and scale, then on near chunks the p^6 chain, the vdw
 # product and mask and the term add, and the accumulate.
 FLOPS_DFIRE, FLOPS_EV_NEAR, FLOPS_EV_FAR = 9, 22, 13
+FARM_SWARMS, FARM_V1_SWARMS, FARM_SINGLE_STEPS = 32, 4, 10
+# Absolute floor on raw DFIRE sums where a call holds thousands of poses
+# (phases 16-17): among 6,400 poses some sums nearly cancel, and there two
+# f32 orders of the same ~56k pair terms part by a few ulps of the partial
+# sums (up to 3.2e-4 on the 200-pose cases).  1e-3 raw is 1.6e-5 of score.
+REORDER_ATOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -138,20 +177,25 @@ class KernelPath:
     built for it on the card, and the kernel that path chose (with its
     plain version, launch counter and device kernel names)."""
 
-    def __init__(self, label, system):
+    def __init__(self, label, system, energy_mode="kernel"):
         import torch
 
         from lightdock_tpu_torch.engine.energy_kernel import (
             kernel_params, make_kernel_energy_fn)
         from lightdock_tpu_torch.engine.params import torch_params
         from lightdock_tpu_torch.ops import dfire_pairs as dp
+        from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
         from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
+        from lightdock_tpu_torch.ops import elec_vdw_pairs_v1 as k5
 
         self.label = label
         self.params, self.pos, self.num_anm = system
-        kparams = kernel_params(self.params)
+        self.energy_mode = energy_mode
+        gen = "v1" if energy_mode == "kernel_v1" else "v2"
+        kparams = kernel_params(self.params, gen)
         self.tp = torch_params(kparams, "cuda", torch.float32)
-        self.energy_fn = make_kernel_energy_fn(kparams, "cuda", torch.float32)
+        self.energy_fn = make_kernel_energy_fn(kparams, "cuda", torch.float32,
+                                               kernel=gen)
         self.kernel = self.energy_fn.kernel
         self.plain, self.kernel_names = {
             dp.dfire_pairs: (dp.dfire_pairs_plain,
@@ -161,7 +205,11 @@ class KernelPath:
                                        "dfire_pairs_worklist_kernel",
                                        "sum_rows_kernel")),
             ev.elec_vdw_pairs: (ev.elec_vdw_pairs_plain,
-                                ("elec_vdw_pairs_kernel", "sum_tiles_kernel")),
+                                ("elec_vdw_pairs_kernel", "sum_rows_kernel")),
+            k4.dfire_pairs_v1: (k4.dfire_pairs_v1_plain,
+                                ("dfire_pairs_v1_kernel", "sum_rows_kernel")),
+            k5.elec_vdw_pairs_v1: (k5.elec_vdw_pairs_v1_plain,
+                                   ("elec_vdw_pairs_v1_kernel", "sum_rows_kernel")),
         }[self.kernel]
 
     def pose(self, n, t=None):
@@ -179,12 +227,13 @@ class KernelPath:
         k = self.num_anm
         return GsoTorchRunner(self.params, self.pos, SEED, use_anm=k > 0,
                               anm_rec=k, anm_lig=k, output_directory=out_dir,
-                              dtype=torch.float32, device="cuda")
+                              dtype=torch.float32, device="cuda",
+                              energy_mode=self.energy_mode)
 
 
-def compare(path, args, kwargs, phase, label, kernel=None, plain=None):
-    """A kernel (the path's by default) against plain on the same inputs;
-    returns the max |raw diff|."""
+def compare(path, args, kwargs, phase, label, kernel=None, plain=None, atol=ATOL):
+    """A kernel (the path's by default) against plain on the same inputs,
+    raw sums at rtol 5e-5 and ``atol``; returns the max |raw diff|."""
     import torch
     kernel = kernel or path.kernel
     plain = plain or path.plain
@@ -197,7 +246,11 @@ def compare(path, args, kwargs, phase, label, kernel=None, plain=None):
     check(out[0].shape == (n,) and bool(torch.isfinite(out[0]).all()),
           f"{path.label}: kernel raw sums not finite / shaped ({label})")
     err = float((out[0] - ref[0]).abs().max())
-    close = bool(torch.allclose(out[0], ref[0], rtol=RTOL, atol=ATOL))
+    close = bool(torch.allclose(out[0], ref[0], rtol=RTOL, atol=atol))
+    if atol != ATOL:
+        beyond = ~torch.isclose(out[0], ref[0], rtol=RTOL, atol=ATOL)
+        label += (f", atol {atol:g} ({int(beyond.sum())} sums beyond atol {ATOL:g}, "
+                  f"|raw| there up to {float(ref[0][beyond].abs().max()) if beyond.any() else 0:.4g})")
     if kwargs["need_iface"]:
         flags = torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
         note = (f"interface flags equal {flags}, flags set "
@@ -205,10 +258,10 @@ def compare(path, args, kwargs, phase, label, kernel=None, plain=None):
     else:
         flags = out[1] is None and out[2] is None
         note = f"no flags returned {flags}"
-    act, near = args[-2], kwargs["near_chunks"]
+    act, near = args[-2], kwargs.get("near_chunks")
     near_n = int((near * act).sum()) if near is not None else "-"
     say(f"phase {phase}: {path.label} {kernel.__name__} {label}: max|raw diff| "
-        f"{err:.3e} (allclose {close}), {note}, active chunk-tiles "
+        f"{err:.3e} (allclose {close}), {note}, active bits "
         f"{int(act.sum())}/{act.numel()}, near {near_n}")
     check(close, f"{path.label}: kernel raw sums disagree with plain ({label})")
     check(flags, f"{path.label}: interface flags disagree with plain ({label})")
@@ -346,14 +399,15 @@ def device_profile(fn):
     return wall_us, dev, launch
 
 
-def profile_steps(runner, card, kernel_names, first=10, last=30) -> str:
-    """Profile steps first+1..last of ``runner`` after a reset and return a
-    one-line summary.  Device time is the sum of the device-side events
-    (kernels, copies, fills) the profiler records; on one stream they do not
-    overlap, so it is the device's busy time."""
-    runner.reset()
-    runner.run(first)
-    wall_us, dev_events, launch = device_profile(lambda: runner.run(last))
+def profile_steps(reset, advance, card, kernel_names, first=10, last=30) -> str:
+    """Profile steps first+1..last after ``reset()`` and ``advance(first)``
+    (``advance(n)`` runs to n completed steps) and return a one-line
+    summary.  Device time is the sum of the device-side events (kernels,
+    copies, fills) the profiler records; on one stream they do not overlap,
+    so it is the device's busy time."""
+    reset()
+    advance(first)
+    wall_us, dev_events, launch = device_profile(lambda: advance(last))
     steps = last - first
     if not dev_events:
         return (f"[{card}] steps {first + 1}-{last}: wall {wall_us / 1e3:.3f} ms; "
@@ -415,7 +469,7 @@ def timing(path, main, card, phases, plain_reps=10):
         f"min {min(step_ms):.3f} ms, median {sorted(step_ms)[10]:.3f} ms, max "
         f"{max(step_ms):.3f} ms per step")
     say(f"phase {phases[1]}: {path.label}: "
-        + profile_steps(timer, card, path.kernel_names))
+        + profile_steps(timer.reset, timer.run, card, path.kernel_names))
     return kernel_ms, plain_ms
 
 
@@ -434,11 +488,30 @@ def f64_errors(path, main, phase):
         f"{float(exact.abs().max()):.3e}")
 
 
-def bound(main, out, ev=False):
-    """(bound_ms, bound_by) of one kernel call: the larger of the bytes its
-    inputs and outputs take once over the HBM rate and its f32 operations
-    over the f32 peak, counting the pair-poses of this call's active
-    chunk-tiles (32 x 128 atoms x 16 poses each)."""
+def pair_poses(main, bits, chunks):
+    """The pair-poses that the set ``bits`` (n_r, n_l, P) of one kernel call
+    ask for, counting real atoms only: each tile's bits weighted by its
+    true row and column counts (the last tiles of each side are part
+    padding).  With ``chunks`` a bit covers a 16-pose chunk and counts the
+    chunk's real poses."""
+    import torch
+
+    args, kwargs = main
+    nr, (g, _, nl) = args[0].shape[1], args[1].shape
+    r_tile, l_tile = kwargs["r_tile"], kwargs["l_tile"]
+
+    def real(n_tiles, n, size):
+        first = torch.arange(n_tiles, dtype=torch.float64, device=bits.device) * size
+        return (n - first).clamp(min=0, max=size)
+
+    poses = (real(bits.shape[2], g, 16) if chunks
+             else torch.ones(bits.shape[2], dtype=torch.float64, device=bits.device))
+    return int(torch.einsum("rlp,r,l,p->", bits.double(), real(bits.shape[0], nr, r_tile),
+                            real(bits.shape[1], nl, l_tile), poses))
+
+
+def nbytes_once(main, out):
+    """Bytes of a kernel call's inputs and outputs, each once."""
     import torch
 
     args, kwargs = main
@@ -448,25 +521,31 @@ def bound(main, out, ev=False):
             tensors.append(a)
         elif isinstance(a, tuple):   # DfireTables
             tensors += [x for x in a if torch.is_tensor(x)]
-    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def bound(main, out, ev=False):
+    """(bound_ms, bound_by) of one K1, K2 or K3 call: the larger of the
+    bytes its inputs and outputs take once over the HBM rate and its f32
+    operations over the f32 peak, counting the real pair-poses of this
+    call's active chunk-tiles (:func:`pair_poses`)."""
+    args, kwargs = main
     act = args[8] if ev else args[3]
-    per_chunk_tile = kwargs["r_tile"] * kwargs["l_tile"] * 16
-    n_act = int(act.sum())
+    n_act = pair_poses(main, act, chunks=True)
     if ev:
         near = kwargs["near_chunks"]
-        n_near = int((act * near).sum()) if near is not None else n_act
-        flops = (n_near * FLOPS_EV_NEAR + (n_act - n_near) * FLOPS_EV_FAR) * per_chunk_tile
+        n_near = pair_poses(main, act * near, chunks=True) if near is not None else n_act
+        flops = n_near * FLOPS_EV_NEAR + (n_act - n_near) * FLOPS_EV_FAR
     else:
-        flops = n_act * FLOPS_DFIRE * per_chunk_tile
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+        flops = n_act * FLOPS_DFIRE
+    t_bytes, t_ops = nbytes_once(main, out) / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def coincident_pair(phase):
-    """A coincident atom pair: NaN in the kernel and in its plain version."""
+def coincident_pair(phase, kernel, plain, name):
+    """A coincident atom pair: NaN in an elec/vdw kernel (K3 or K5) and in
+    its plain version."""
     import torch
-
-    from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
 
     def vec(v):
         return torch.full((1,), v, dtype=torch.float32, device="cuda")
@@ -474,12 +553,12 @@ def coincident_pair(phase):
     ones = torch.ones((1, 1, 1), dtype=torch.int32, device="cuda")
     args = (torch.zeros((1, 1, 3), device="cuda"), torch.zeros((1, 3, 1), device="cuda"),
             vec(0.5), vec(0.5), vec(0.2), vec(0.2), vec(1.5), vec(1.5), ones, ones)
-    before = ev.elec_vdw_pairs.launches
-    out = ev.elec_vdw_pairs(*args, r_tile=32, l_tile=128)[0]
-    ref = ev.elec_vdw_pairs_plain(*args, r_tile=32, l_tile=128)[0]
+    before = kernel.launches
+    out = kernel(*args, r_tile=32, l_tile=128)[0]
+    ref = plain(*args, r_tile=32, l_tile=128)[0]
     torch.cuda.synchronize()
-    check(ev.elec_vdw_pairs.launches == before + 1, "K3 did not launch")
-    say(f"phase {phase}: K3 coincident pair: kernel {float(out[0])}, plain "
+    check(kernel.launches == before + 1, f"{name} did not launch")
+    say(f"phase {phase}: {name} coincident pair: kernel {float(out[0])}, plain "
         f"{float(ref[0])}")
     check(bool(torch.isnan(out).all() and torch.isnan(ref).all()),
           "a coincident pair must give NaN in the kernel and in plain")
@@ -569,6 +648,220 @@ def active_share(path, phase):
           "pairs active at step 1; the work list would be a no-op")
 
 
+def v1_kernel_cases(path, phase, gen, rng):
+    """K4 or K5 against plain at the path's shapes (G=200 and 37, with and
+    without the moved gate), on clustered poses with culled tile-poses
+    (with and without interface flags) and, for K4, with the step tables in
+    bfloat16; two launches must be bit-equal.  Returns the max error and
+    the ungated G=200 call."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
+
+    max_err, main = 0.0, None
+    for n in (N_POSES, 37):
+        for gated in (False, True):
+            moved = (torch.rand(n, generator=gen, device="cuda") < 0.6) if gated else None
+            args, kwargs = path.energy_fn.kernel_args(path.tp, *path.pose(n), moved)
+            max_err = max(max_err, compare(path, args, kwargs, phase,
+                                           f"G={n} moved_gate={gated}"))
+            if n == N_POSES and not gated:
+                main = (args, kwargs)
+    # Poses clustered in groups of 16, up to 45 A from the receptor: the
+    # box cull zeroes some tile-poses' bits.
+    n_groups = -(-N_POSES // 16)
+    t_far = (np.repeat(rng.uniform(-45, 45, (n_groups, 3)), 16, axis=0)[:N_POSES]
+             + rng.uniform(-3, 3, (N_POSES, 3)))
+    args, kwargs = path.energy_fn.kernel_args(path.tp, *path.pose(N_POSES, t_far))
+    act = args[-2]
+    check(0 < int(act.sum()) < act.numel(),
+          f"{path.label}: clustered poses culled {act.numel() - int(act.sum())} of "
+          f"{act.numel()} tile-poses")
+    for need_iface in (True, False):
+        max_err = max(max_err, compare(path, args, dict(kwargs, need_iface=need_iface),
+                                       phase, f"G={N_POSES} clustered need_iface={need_iface}"))
+    if path.kernel is k4.dfire_pairs_v1:
+        a, kw = main
+        b16 = a[:2] + (a[2].to(torch.bfloat16),) + a[3:]
+        max_err = max(max_err, compare(path, b16, kw, phase,
+                                       f"G={N_POSES} bfloat16 step tables"))
+    again = path.kernel(*main[0], **main[1])
+    first = path.kernel(*main[0], **main[1])
+    check(torch.equal(again[0], first[0]), f"{path.label}: sums differ between runs")
+    return max_err, main
+
+
+def bound_v1(main, out, flops_per_pair):
+    """(bound_ms, bound_by) of one K4 or K5 call, as :func:`bound` counts
+    them, over the real pair-poses of this call's active tile-poses: its
+    tensors once (for K4 the step tables included) over the HBM rate,
+    ``flops_per_pair`` f32 operations a pair-pose over the f32 peak."""
+    args, _ = main
+    t_bytes = nbytes_once(main, out) / PEAK_BYTES * 1e3
+    t_ops = pair_poses(main, args[-2], chunks=False) * flops_per_pair / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def farm_kernel_cases(runner, phase, label, kernel, plain):
+    """A farm's kernel against its plain version on the farm's step-1
+    inputs: all S x G poses in one call, in the order the energy path hands
+    them over (Morton order of the translation; moved poses first under the
+    gate), with and without the moved gate.  Returns the max error."""
+    import types
+
+    import torch
+
+    from lightdock_tpu_torch.ops.cull import morton_key
+
+    runner.reset()
+    st = runner.states
+    n = st.t.shape[0] * st.t.shape[1]
+    pose = [x.reshape(n, *x.shape[2:]) for x in (st.t, st.q, st.a_rec, st.a_lig)]
+    path = types.SimpleNamespace(label=label, kernel=kernel, plain=plain)
+    gen = torch.Generator(device=runner.device).manual_seed(13)
+
+    def inputs(moved=None):
+        key = morton_key(pose[0])
+        if moved is not None:
+            key = key + torch.logical_not(moved).to(torch.int64) * (1 << 32)
+        order = torch.sort(key, stable=True).indices
+        return runner.energy_fn.kernel_args(
+            runner.params, *(x[order] for x in pose),
+            None if moved is None else moved[order])
+
+    max_err = 0.0
+    for gated in (False, True):
+        moved = (torch.rand(n, generator=gen, device=runner.device) < 0.6) if gated else None
+        args, kwargs = inputs(moved)
+        max_err = max(max_err, compare(path, args, kwargs, phase,
+                                       f"G={n} step-1 inputs moved_gate={gated}",
+                                       atol=REORDER_ATOL))
+    return max_err
+
+
+def farm_phases(card, counters):
+    """Phases 16 and 17: the 32-swarm farm in the kernel mode against single
+    runs and K1 against plain on its inputs, its poses/s and profile, then
+    4 swarms in the v1 mode and K4 against plain on theirs.  Returns K1's
+    and K4's max errors and K4's launches."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.engine.runner import GsoTorchRunner
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+    from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
+    from lightdock_tpu_torch.parallel.farm import SwarmFarmRunner
+
+    n_all = FARM_SWARMS * N_POSES
+    params, pos, _ = standin.toy_system(*DFIRE_ATOMS, n_all)
+    swarms = [pos[i * N_POSES:(i + 1) * N_POSES] for i in range(FARM_SWARMS)]
+
+    def farm(p, positions, mode, root):
+        return SwarmFarmRunner(p, positions, list(range(len(positions))), SEED,
+                               use_anm=False, anm_rec=0, anm_lig=0,
+                               dtype=torch.float32, output_root=root,
+                               energy_mode=mode, device="cuda")
+
+    label = f"farm {FARM_SWARMS} x {N_POSES} 1ppe DFIRE"
+    expected = {f"gso_{s}.out" for s in [1] + list(range(10, STEPS + 1, 10))}
+    with tempfile.TemporaryDirectory() as root:
+        runner = farm(params, swarms, "kernel", root)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        final, _ = runner.run_segmented(STEPS, SEGMENT)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        dirs = sorted(q.name for q in pathlib.Path(root).iterdir())
+        snaps_ok = all({q.name for q in (pathlib.Path(root) / d).glob("gso_*.out")}
+                       == expected for d in dirs)
+        step1 = np.stack([np.load(pathlib.Path(root) / f"swarm_{i}" / "gso_1.out.npz")["scoring"]
+                          for i in range(FARM_SWARMS)])
+        texts = {(i, s): (pathlib.Path(root) / f"swarm_{i}" / f"gso_{s}.out").read_text()
+                 for i in (0, FARM_SWARMS - 1) for s in (1, FARM_SINGLE_STEPS)}
+    say(f"phase 16: {label}: {STEPS} steps in {run_s:.3f} s (first run, with "
+        f"snapshots); kernel launches {launches}; {len(dirs)} swarm directories, "
+        f"11 snapshots each {snaps_ok}; final scores min "
+        f"{float(final.scoring.min()):.6f} max {float(final.scoring.max()):.6f}")
+    check(launches["dfire_pairs"] == STEPS and sum(launches.values()) == STEPS,
+          f"{label}: kernel launches {launches} in {STEPS} steps")
+    check(dirs == sorted(f"swarm_{i}" for i in range(FARM_SWARMS)) and snaps_ok,
+          f"{label}: swarm directories {dirs[:4]}... or their snapshots")
+    check(tuple(final.scoring.shape) == (FARM_SWARMS, N_POSES), "farm scores misshapen")
+    for name, x in final._asdict().items():
+        if x.is_floating_point():
+            check(bool(torch.isfinite(x).all()), f"{label}: non-finite {name}")
+    k1_err = farm_kernel_cases(runner, 16, label, dp.dfire_pairs, dp.dfire_pairs_plain)
+
+    # Timing, which also keeps the first steps' neighbour counts.
+    timer = farm(params, swarms, "kernel", None)
+    times, outs = [], None
+    for _ in range(5):
+        timer.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, outs = timer.run_segmented(STEPS, STEPS)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    say(f"phase 16: [{card}] {label}: {STEPS} GSO steps x {n_all} poses: min of 5 "
+        f"{best:.4f} s = {n_all * STEPS / best:.1f} poses/s "
+        f"({best / STEPS * 1e3:.3f} ms a step; all: {', '.join(f'{x:.4f}' for x in times)})")
+    check(all(math.isfinite(x) for x in times), "farm timing failed")
+    farm_nn = outs.num_neighbors[:FARM_SINGLE_STEPS].cpu()
+
+    # Swarms 0 and 31 alone, from the same positions.
+    for i in (0, FARM_SWARMS - 1):
+        with tempfile.TemporaryDirectory() as out_dir:
+            single = GsoTorchRunner(params, swarms[i], SEED, use_anm=False, anm_rec=0,
+                                    anm_lig=0, output_directory=out_dir,
+                                    dtype=torch.float32, device="cuda")
+            _, souts = single.run(FARM_SINGLE_STEPS)
+            same_text = {s: (pathlib.Path(out_dir) / f"gso_{s}.out").read_text() == texts[(i, s)]
+                         for s in (1, FARM_SINGLE_STEPS)}
+        ours = souts.scoring[0]
+        theirs = torch.as_tensor(step1[i], device="cuda")
+        err = float((ours - theirs).abs().max())
+        close = bool(torch.allclose(ours, theirs, rtol=RTOL, atol=ATOL))
+        nn_same = sum(bool(torch.equal(souts.num_neighbors[k].cpu(), farm_nn[k, i]))
+                      for k in range(FARM_SINGLE_STEPS))
+        say(f"phase 16: {label}: swarm {i} alone: step-1 scores max|diff| {err:.3e} "
+            f"(allclose {close}); neighbour counts equal on {nn_same} of "
+            f"{FARM_SINGLE_STEPS} steps; gso_1 text identical {same_text[1]}, "
+            f"gso_{FARM_SINGLE_STEPS} text identical {same_text[FARM_SINGLE_STEPS]}")
+        check(close, f"{label}: swarm {i}'s step-1 scores differ from a single run")
+    say(f"phase 16: {label}: " + profile_steps(
+        timer.reset, lambda n: timer.run_segmented(n, n), card,
+        ("dfire_pairs_kernel", "sum_rows_kernel")))
+
+    # 17. Four swarms in the v1 mode (K4), against the kernel-mode farm.
+    steps_params, _, _ = standin.toy_system(*DFIRE_ATOMS, n_all, dfire_mode="steps")
+    v1 = farm(steps_params, swarms[:FARM_V1_SWARMS], "kernel_v1", None)
+    for c in counters:
+        c.launches = 0
+    final, outs = v1.run_segmented(FARM_SINGLE_STEPS, FARM_SINGLE_STEPS)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    ours = outs.scoring[0]
+    theirs = torch.as_tensor(step1[:FARM_V1_SWARMS], device="cuda")
+    err = float((ours - theirs).abs().max())
+    close = bool(torch.allclose(ours, theirs, rtol=RTOL, atol=ATOL))
+    say(f"phase 17: farm {FARM_V1_SWARMS} x {N_POSES} kernel_v1: "
+        f"{FARM_SINGLE_STEPS} steps, kernel launches {launches}; step-1 scores "
+        f"against the kernel-mode farm max|diff| {err:.3e} (allclose {close})")
+    check(launches["dfire_pairs_v1"] == FARM_SINGLE_STEPS
+          and sum(launches.values()) == FARM_SINGLE_STEPS,
+          f"v1 farm: kernel launches {launches} in {FARM_SINGLE_STEPS} steps")
+    check(close and bool(torch.isfinite(final.scoring).all()),
+          "v1 farm step-1 scores differ from the kernel-mode farm's")
+    k4_err = farm_kernel_cases(v1, 17, f"farm {FARM_V1_SWARMS} x {N_POSES} kernel_v1",
+                               k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain)
+    return k1_err, k4_err, launches["dfire_pairs_v1"]
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -591,7 +884,9 @@ def main() -> int:
     from lightdock_tpu_torch import standin
     from lightdock_tpu_torch.ops import _build
     from lightdock_tpu_torch.ops import dfire_pairs as dp
+    from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
     from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
+    from lightdock_tpu_torch.ops import elec_vdw_pairs_v1 as k5
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -603,16 +898,18 @@ def main() -> int:
     say(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    built = _build.load_all(["dfire_pairs", "elec_vdw_pairs"])
+    built = _build.load_all(["dfire_pairs", "elec_vdw_pairs", "dfire_pairs_v1",
+                             "elec_vdw_pairs_v1"])
     build_s = time.perf_counter() - t0
     for name, lib in built.items():
         ptxas = [ln.strip() for ln in lib.log.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         say(f"phase 1: built {lib.path.name} (nvcc {lib.build_seconds:.2f} s); "
             f"ptxas: {' | '.join(ptxas) or 'reused'}")
-    say(f"phase 1: both sources built in {build_s:.2f} s")
+    say(f"phase 1: all {len(built)} sources built in {build_s:.2f} s")
 
-    counters = (dp.dfire_pairs, dp.dfire_pairs_worklist, ev.elec_vdw_pairs)
+    counters = (dp.dfire_pairs, dp.dfire_pairs_worklist, ev.elec_vdw_pairs,
+                k4.dfire_pairs_v1, k5.elec_vdw_pairs_v1)
     gen = torch.Generator(device="cuda").manual_seed(7)
     rng = np.random.RandomState(SEED)
 
@@ -633,7 +930,7 @@ def main() -> int:
     err, k3_main = kernel_cases(dna, 6, gen, rng)
     k3_err = max(k3_err, err)
     f64_errors(dna, k3_main, 6)
-    coincident_pair(6)
+    coincident_pair(6, ev.elec_vdw_pairs, ev.elec_vdw_pairs_plain, "K3")
     k3_launches, step1 = drive(dna, counters, 7)
     oracle(dna, step1, 7)
     k3_ms, k3_plain_ms = timing(dna, k3_main, card, (8, 8))
@@ -662,6 +959,33 @@ def main() -> int:
     k2_ms, k1_same_ms = worklist_timing(k4c, k2_main, card, 12)
     k1_pp_ms = cuda_ms(lambda: dp.dfire_pairs(*anm_main[0], **anm_main[1]), 200)
     _, k2_plain_ms = timing(k4c, k2_main, card, (12, 12), plain_reps=2)
+    # -- 13-14. the 1ppe v1 DFIRE path and K4 ---------------------------------
+    dfire_v1 = KernelPath("1ppe DFIRE v1", standin.toy_system(
+        *DFIRE_ATOMS, N_POSES, dfire_mode="steps"), energy_mode="kernel_v1")
+    check(dfire_v1.kernel is k4.dfire_pairs_v1, "the 1ppe v1 path did not choose K4")
+    k4_err, k4_main = v1_kernel_cases(dfire_v1, 13, gen, rng)
+    k4_launches, step1 = drive(dfire_v1, counters, 14)
+    oracle(dfire_v1, step1, 14)
+    k4_ms, k4_plain_ms = timing(dfire_v1, k4_main, card, (14, 14))
+
+    # -- 15. K5 and the 1azp DNA + ANM v1 path ---------------------------------
+    rigid_v1 = KernelPath("1azp DNA rigid v1", standin.toy_system(
+        *DNA_ATOMS, N_POSES, method="dna"), energy_mode="kernel_v1")
+    k5_err, _ = v1_kernel_cases(rigid_v1, 15, gen, rng)
+    dna_v1 = KernelPath("1azp DNA + ANM v1", standin.toy_system(
+        *DNA_ATOMS, N_POSES, num_anm=DNA_ANM, method="dna"), energy_mode="kernel_v1")
+    check(dna_v1.kernel is k5.elec_vdw_pairs_v1, "the 1azp v1 path did not choose K5")
+    err, k5_main = v1_kernel_cases(dna_v1, 15, gen, rng)
+    k5_err = max(k5_err, err)
+    coincident_pair(15, k5.elec_vdw_pairs_v1, k5.elec_vdw_pairs_v1_plain, "K5")
+    k5_launches, step1 = drive(dna_v1, counters, 15)
+    oracle(dna_v1, step1, 15)
+    k5_ms, k5_plain_ms = timing(dna_v1, k5_main, card, (15, 15))
+
+    # -- 16-17. the farm -------------------------------------------------------
+    err, err_v1, _ = farm_phases(card, counters)
+    k1_err, k4_err = max(k1_err, err), max(k4_err, err_v1)
+
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
         "the port imported jax or the JAX package")
@@ -674,6 +998,12 @@ def main() -> int:
     k2_bound = bound(k2_main, out)
     out = dp.dfire_pairs(*anm_main[0], **anm_main[1])
     pp_bound = bound(anm_main, out)
+    out = k4.dfire_pairs_v1(*k4_main[0], **k4_main[1])
+    k4_bound = bound_v1(k4_main, out, FLOPS_DFIRE)
+    out = k5.elec_vdw_pairs_v1(*k5_main[0], **k5_main[1])
+    k5_bound = bound_v1(k5_main, out, FLOPS_EV_NEAR)
+    say(f"phase 15: [{card}] bounds: K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}), "
+        f"K5 {k5_bound[0]:.4f} ms ({k5_bound[1]})")
     say(f"phase 12: [{card}] bounds: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}), "
         f"K3 {k3_bound[0]:.4f} ms ({k3_bound[1]}), K2 {k2_bound[0]:.4f} ms "
         f"({k2_bound[1]}); K1 on K2's inputs {k1_same_ms:.4f} ms; K1 with a "
@@ -690,6 +1020,10 @@ def main() -> int:
                f"{pallas}:1325", k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
         record("dfire_pairs_worklist", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
                f"{pallas}:1115", k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
+        record("dfire_pairs_v1", "lightdock_tpu_torch/csrc/dfire_pairs_v1.cu",
+               f"{pallas}:213", k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound),
+        record("elec_vdw_pairs_v1", "lightdock_tpu_torch/csrc/elec_vdw_pairs_v1.cu",
+               f"{pallas}:364", k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,8 @@
 
 #include <limits>
 
+#include "sum_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -258,19 +260,6 @@ compact_tiles_kernel(const int32_t* __restrict__ act, int n_tiles, int n_chunks,
   if (threadIdx.x == 0) *n_active = s_base;
 }
 
-// raw[g] = sum over rows, in row order, of partial[row][g]; the row count
-// is n_rows, or *n_rows_dev when that is given.
-__global__ void sum_rows_kernel(const float* __restrict__ partial,
-                                const int32_t* __restrict__ n_rows_dev,
-                                float* __restrict__ raw, int n_rows, int gp) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= gp) return;
-  const int n = n_rows_dev != nullptr ? *n_rows_dev : n_rows;
-  float s = 0.0f;
-  for (int t = 0; t < n; ++t) s += partial[(size_t)t * gp + g];
-  raw[g] = s;
-}
-
 // Checks the shapes and fills in and thr; 0 or a CUDA error code.
 int prepare(const void* rec, const void* lig, const void* cum,
             const void* lig_type, const void* act, const void* iface_act,
@@ -322,9 +311,7 @@ extern "C" int dfire_pairs_launch(
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sum_rows_kernel<<<(gp + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      f_part, nullptr, static_cast<float*>(raw), n_r * in.n_l, gp);
-  return (int)cudaGetLastError();
+  return sum_rows(f_part, nullptr, static_cast<float*>(raw), n_r * in.n_l, gp, s);
 }
 
 extern "C" int dfire_pairs_worklist_launch(
@@ -358,7 +345,5 @@ extern "C" int dfire_pairs_worklist_launch(
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sum_rows_kernel<<<(gp + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      f_part, n_act, static_cast<float*>(raw), 0, gp);
-  return (int)cudaGetLastError();
+  return sum_rows(f_part, n_act, static_cast<float*>(raw), 0, gp, s);
 }

@@ -1,15 +1,20 @@
 """Kernel energy path: the per-step preparation around the pair kernels.
 
 Port of ``lightdock_tpu/engine/energy_pallas.py`` ``make_pallas_energy_fn``
-(its ``energy_fn`` and ``_compute``) for all three methods, rigid or with
-ANM: rotation, the re-centred ligand (G, 3, Nl) with its ANM displacement,
-the receptor (1, Nr, 3), or (G, Nr, 3) with receptor ANM, the box cull
-with ANM slack at the method's energy, interface and near cutoffs, sub-box
-to tile coarsening, the OR over each pose chunk, the moved-first + Morton
-pose order and its inverse, the moved gate, then the kernel
-(``ops.dfire_pairs`` K1 or ``ops.dfire_pairs_worklist`` K2 for DFIRE,
-``ops.elec_vdw_pairs`` for DNA and PYDOCK), the affine finish and the
-restraint bias.
+(its ``energy_fn`` and ``_compute``), ``resolve_kernel`` and
+``pose_chunked_energy`` for all three methods, rigid or with ANM:
+rotation, the re-centred ligand (G, 3, Nl) with its ANM displacement, the
+receptor (1, Nr, 3), or (G, Nr, 3) with receptor ANM, the box cull with
+ANM slack at the method's energy, interface and (v2) near cutoffs, sub-box
+to tile coarsening, the moved-first + Morton pose order and its inverse,
+the moved gate, then the kernel, the affine finish and the restraint bias.
+
+Two kernel generations, as in JAX.  'v2' ORs the energy and near bits over
+each 16-pose chunk and runs ``ops.dfire_pairs`` K1 or
+``ops.dfire_pairs_worklist`` K2 for DFIRE (type-indexed tables),
+``ops.elec_vdw_pairs`` K3 for DNA and PYDOCK.  'v1' keeps both bits per
+pose and runs ``ops.dfire_pairs_v1`` K4 (the (K, Nr, Nl) step tables) or
+``ops.elec_vdw_pairs_v1`` K5.
 
 The tile shape is the GPU's own (``ops.tiling.R_TILE`` x ``L_TILE``, 16
 poses a chunk); the TPU's tile picker and VMEM pose cap do not apply.
@@ -28,7 +33,9 @@ from ..ops import quaternion as qt
 from ..ops.cull import cull_mask_boxes, morton_key, pose_slack
 from ..ops.dfire_pairs import (POSE_BLOCK, dfire_pairs, dfire_pairs_worklist,
                                dfire_tables)
+from ..ops.dfire_pairs_v1 import dfire_pairs_v1
 from ..ops.elec_vdw_pairs import elec_vdw_pairs
+from ..ops.elec_vdw_pairs_v1 import elec_vdw_pairs_v1
 from ..ops.tiling import (L_TILE, R_TILE, anm_mode_bounds, cull_subsizes,
                           pad_box_groups, rec_box_geometry,
                           spatial_sort_params, tile_boxes)
@@ -45,11 +52,24 @@ def use_worklist(n_r: int, n_l: int) -> bool:
     return n_r * n_l >= WORKLIST_MIN_TILES
 
 
-def kernel_params(params: BatchScoringParams) -> BatchScoringParams:
-    """``params`` as the kernel path takes them: the type-indexed DFIRE
-    tables without the redundant (K, Nr, Nl) dq tensor, and both atom axes
-    in RCB order so the tile cull bites (energies are unchanged)."""
-    if params.method == "dfire":
+def resolve_kernel(params: BatchScoringParams, kernel: str = "auto") -> str:
+    """'auto' -> 'v2' wherever its inputs exist: always for DNA and PYDOCK,
+    for DFIRE when the type-indexed tables are present
+    (``engine.params.ensure_dfire_types``), else 'v1', which needs the
+    (K, Nr, Nl) step tables (copy of ``energy_pallas.resolve_kernel``)."""
+    if kernel != "auto":
+        return kernel
+    if params.method != "dfire":
+        return "v2"
+    return "v2" if params.dfire_rec_half is not None else "v1"
+
+
+def kernel_params(params: BatchScoringParams, kernel: str = "v2") -> BatchScoringParams:
+    """``params`` as the kernel path takes them, with both atom axes in RCB
+    order so the tile cull bites (energies are unchanged).  For 'v2' DFIRE
+    takes the type-indexed tables without the redundant (K, Nr, Nl) dq
+    tensor; for 'v1' it keeps the step tables its kernel reads."""
+    if params.method == "dfire" and kernel == "v2":
         params = dataclasses.replace(ensure_dfire_types(params), dfire_dq=None)
     return spatial_sort_params(params)
 
@@ -63,37 +83,50 @@ def frame_center(params: BatchScoringParams) -> np.ndarray:
 
 def make_kernel_energy_fn(params: BatchScoringParams, device,
                           dtype: torch.dtype = torch.float32,
-                          cull: bool = True, worklist: Optional[bool] = None):
+                          cull: bool = True, worklist: Optional[bool] = None,
+                          kernel: str = "auto"):
     """Build ``energy_fn(p, t, q, a_rec, a_lig, moved=None,
     prev_scoring=None) -> (G,)``.
 
-    ``params`` is the NumPy ``BatchScoringParams`` (spatially sorted; for
-    DFIRE with the type-indexed tables of ``engine.params.ensure_dfire_types``);
-    the cull boxes and the DFIRE kernel's tables are built from it once, on
-    ``device`` at ``dtype``.  ``p``, given at each call, is the same
-    complex as tensors (``engine.params.torch_params``).
+    ``params`` is the NumPy ``BatchScoringParams`` (spatially sorted, see
+    :func:`kernel_params`); the cull boxes and the v2 DFIRE kernel's tables
+    are built from it once, on ``device`` at ``dtype``.  ``p``, given at
+    each call, is the same complex as tensors
+    (``engine.params.torch_params``).
 
-    DFIRE runs K1 or, with ``worklist`` true, K2; ``worklist=None`` picks
-    K2 for grids of at least ``WORKLIST_MIN_TILES`` tile pairs (the JAX
-    rule, on the port's tiles).  The chosen kernel's wrapper is
+    ``kernel`` is 'v1', 'v2' or 'auto' (:func:`resolve_kernel`).  v2 DFIRE
+    needs the type-indexed tables and runs K1 or, with ``worklist`` true,
+    K2; ``worklist=None`` picks K2 for grids of at least
+    ``WORKLIST_MIN_TILES`` tile pairs (the JAX rule, on the port's tiles).
+    v1 DFIRE needs the step tables (``dfire_mode='steps'``) and reads
+    ``p.dfire_dq``, float32 or bfloat16.  The chosen kernel's wrapper is
     ``energy_fn.kernel``.
     """
     dfire = params.method == "dfire"
     rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
     lig_anm = params.use_anm and params.lig_nmodes.shape[0] > 0
-    if dfire and params.dfire_rec_half is None:
+    kernel_gen = resolve_kernel(params, kernel)
+    if kernel_gen not in ("v1", "v2"):
+        raise ValueError(f"kernel must be 'v1', 'v2' or 'auto', got {kernel!r}")
+    v1 = kernel_gen == "v1"
+    if dfire and v1 and params.dfire_dq is None:
+        raise ValueError("the v1 DFIRE kernel needs the step tables "
+                         "(dfire_mode='steps')")
+    if dfire and not v1 and params.dfire_rec_half is None:
         raise ValueError("the DFIRE kernel needs the type-indexed tables "
                          "(engine.params.ensure_dfire_types)")
-    if worklist and not dfire:
-        raise ValueError("the work-list kernel (K2) scores DFIRE only, "
-                         f"not {params.method}")
+    if worklist and (v1 or not dfire):
+        raise ValueError("the work-list kernel (K2) scores DFIRE only, with "
+                         f"the v2 kernels, not {params.method} {kernel_gen}")
     r_tile, l_tile = R_TILE, L_TILE
     nr = params.rec_coords.shape[0]
     nl = params.lig_coords.shape[0]
     r_sub, l_sub = cull_subsizes(nr, nl, r_tile, l_tile)
     n_r = -(-nr // r_tile)
     n_l = -(-nl // l_tile)
-    if not dfire:
+    if v1:
+        kernel = dfire_pairs_v1 if dfire else elec_vdw_pairs_v1
+    elif not dfire:
         kernel = elec_vdw_pairs
     elif worklist or (worklist is None and use_worklist(n_r, n_l)):
         kernel = dfire_pairs_worklist
@@ -112,13 +145,20 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
     def tensor(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-    if dfire:
+    thresholds = (tuple(float(x) for x in np.asarray(params.dfire_thresholds,
+                                                      np.float64))
+                  if dfire else None)
+    if v1:
+        # Energy and interface (DFIRE: d <= 3.9 on the scaled distance)
+        # cutoffs; no near bits.
+        cuts = ([15.0, (C.INTERFACE_CUTOFF + 1.0) / 2.0] if dfire
+                else [C.ELEC_DIST_CUTOFF, C.INTERFACE_CUTOFF])
+    elif dfire:
         tables = dfire_tables(tensor(params.dfire_rec_half),
-                              tensor(params.dfire_lig_onehot),
-                              np.asarray(params.dfire_thresholds, np.float64),
+                              tensor(params.dfire_lig_onehot), thresholds,
                               r_tile, l_tile)
-        # Energy, interface (d <= 3.9 on the scaled distance) and, where
-        # the tables have a far split, near cutoffs.
+        # Energy, interface and, where the tables have a far split, near
+        # cutoffs.
         cuts = [15.0, (C.INTERFACE_CUTOFF + 1.0) / 2.0]
         if tables.split is not None:
             cuts.append(float(np.sqrt(tables.thresholds[tables.split])))
@@ -176,15 +216,19 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         if moved is not None:
             bits = [b * moved.to(torch.int32)[None, None, :] for b in bits]
         act, act_iface = bits[0], bits[1]
+        kwargs = dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface)
+        if v1:   # per-pose bits, no chunks
+            if dfire:
+                return (rec, lig, p.dfire_dq, thresholds, act, act_iface), kwargs
+            return ((rec, lig, p.ele_rec, p.ele_lig, p.vdw_c_rec, p.vdw_c_lig,
+                     p.vdw_r_rec, p.vdw_r_lig, act, act_iface), kwargs)
         gp = -(-g // POSE_BLOCK) * POSE_BLOCK
 
         def chunked(a):  # OR over each pose chunk
             a = torch.nn.functional.pad(a, (0, gp - g))
             return a.reshape(n_r, n_l, gp // POSE_BLOCK, POSE_BLOCK).amax(dim=-1)
 
-        near = chunked(bits[2]) if len(bits) > 2 else None
-        kwargs = dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
-                      near_chunks=near)
+        kwargs["near_chunks"] = chunked(bits[2]) if len(bits) > 2 else None
         if dfire:
             return (rec, lig, tables, chunked(act), act_iface), kwargs
         return ((rec, lig, p.ele_rec, p.ele_lig, p.vdw_c_rec, p.vdw_c_lig,
@@ -201,3 +245,43 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
     energy_fn.kernel_args = kernel_args
     energy_fn.kernel = kernel
     return energy_fn
+
+
+def pose_chunked_energy(energy_fn, max_chunk: Optional[int] = None):
+    """``energy_fn`` over at most ``max_chunk`` poses a call (port of
+    ``energy_pallas.pose_chunked_energy``); None scores every pose in one
+    call.  The chunks are ceil-balanced (37 poses at 16 go as 3 x 16, 6400
+    at 2048 as 4 x 1600), the padding poses repeat the last real pose
+    (finite coordinates: a zero quaternion rotates to NaN) and count as
+    unmoved, and the moved gate passes through each chunk.  The JAX
+    default, a cap from the TPU's VMEM budget, does not apply here.
+    ``wrapped.kernel`` is ``energy_fn.kernel``."""
+
+    def wrapped(p, t, q, a_rec, a_lig, moved=None, prev_scoring=None):
+        n = t.shape[0]
+        if max_chunk is None or n <= max_chunk:
+            return energy_fn(p, t, q, a_rec, a_lig, moved=moved,
+                             prev_scoring=prev_scoring)
+        n_chunks = -(-n // max_chunk)
+        chunk = -(-(-(-n // n_chunks)) // 8) * 8   # ceil to a multiple of 8
+        pad = n_chunks * chunk - n
+
+        def padded(x, edge=True):
+            if edge:
+                return torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])])
+            return torch.cat([x, torch.zeros((pad,) + x.shape[1:],
+                                             dtype=x.dtype, device=x.device)])
+
+        args = [padded(t), padded(q), padded(a_rec), padded(a_lig)]
+        gate = moved is not None and prev_scoring is not None
+        if gate:
+            args += [padded(moved, edge=False), padded(prev_scoring)]
+        out = []
+        for i in range(0, n_chunks * chunk, chunk):
+            tc, qc, arc, alc, *rest = (x[i:i + chunk] for x in args)
+            kw = dict(moved=rest[0], prev_scoring=rest[1]) if gate else {}
+            out.append(energy_fn(p, tc, qc, arc, alc, **kw))
+        return torch.cat(out)[:n]
+
+    wrapped.kernel = getattr(energy_fn, "kernel", None)
+    return wrapped

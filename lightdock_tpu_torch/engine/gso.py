@@ -5,6 +5,13 @@ Port of ``lightdock_tpu/engine/gso_jax.py`` ``SwarmState``,
 luciferin, the (G, G) neighbour search, the masked-cumsum roulette with
 its float-safety net, the moves toward the pre-move snapshot, and the
 vision update.  ``run_swarm`` is a Python loop over steps.
+
+Scoring and movement are split (:func:`gso_move`) so that S stacked swarms
+(leading axis S on every state field) take one step with one energy call
+over all S x G poses and one set of tensor ops for all the moves
+(:func:`swarms_step`, port of ``lightdock_tpu/parallel/farm.py``
+``make_farm_step``): ``torch.func.vmap`` of :func:`gso_move` over the swarm
+axis, where JAX ran ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -71,14 +78,21 @@ def gso_step(params, state: SwarmState, randoms: torch.Tensor, energy_fn):
     """One GSO iteration; returns (new_state, StepOutput).  ``energy_fn``
     has the signature of ``energy_kernel.make_kernel_energy_fn``'s result
     (the dense ``energy_dense.batch_energy`` also fits)."""
+    # 1. Scoring: unmoved glowworms keep their score.
+    moved_prev = state.num_neighbors > 0
+    scoring = energy_fn(params, state.t, state.q, state.a_rec, state.a_lig,
+                        moved=moved_prev, prev_scoring=state.scoring)
+    return gso_move(params, state, scoring.to(state.t.dtype), randoms)
+
+
+def gso_move(params, state: SwarmState, scoring: torch.Tensor,
+             randoms: torch.Tensor):
+    """The rest of a GSO iteration once the step's scores are known:
+    luciferin, neighbours, roulette, moves and vision.  Returns
+    (new_state, StepOutput).  Only ``params.use_anm`` is read."""
     g = state.t.shape[0]
     dtype = state.t.dtype
     dev = state.t.device
-
-    # 1. Scoring (unmoved glowworms keep their score) and luciferin.
-    moved_prev = state.num_neighbors > 0
-    scoring = energy_fn(params, state.t, state.q, state.a_rec, state.a_lig,
-                        moved=moved_prev, prev_scoring=state.scoring).to(dtype)
     luciferin = (1.0 - C.GSO_RHO) * state.luciferin + C.GSO_GAMMA * scoring
 
     # 2. Neighbours: j of i iff L_i < L_j and |t_i - t_j| < vision_i.
@@ -133,6 +147,22 @@ def gso_step(params, state: SwarmState, randoms: torch.Tensor, energy_fn):
     fields = (t_new, q_new, a_rec, a_lig, luciferin, vision, scoring,
               num_neighbors)
     return SwarmState(*fields), StepOutput(*fields)
+
+
+def swarms_step(params, states: SwarmState, randoms: torch.Tensor, energy_fn):
+    """One GSO iteration of S stacked swarms (every field and ``randoms``
+    lead with S): the S x G poses scored by one ``energy_fn`` call, then
+    every swarm moved by :func:`gso_move` vmapped over S.  No Python loop
+    over swarms: the host launches stay those of one swarm."""
+    s, g = states.t.shape[:2]
+    moved_prev = (states.num_neighbors > 0).reshape(s * g)
+    scores = energy_fn(params, states.t.reshape(s * g, 3),
+                       states.q.reshape(s * g, 4),
+                       states.a_rec.reshape(s * g, -1),
+                       states.a_lig.reshape(s * g, -1), moved=moved_prev,
+                       prev_scoring=states.scoring.reshape(s * g))
+    move = torch.func.vmap(lambda st, sc, r: gso_move(params, st, sc, r))
+    return move(states, scores.to(states.t.dtype).reshape(s, g), randoms)
 
 
 def run_swarm(params, state: SwarmState, randoms: torch.Tensor, energy_fn):

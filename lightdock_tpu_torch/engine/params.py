@@ -1,13 +1,14 @@
 """Scoring parameters: the host-side record, its builder, and its tensors.
 
-``BatchScoringParams``, ``build_batch_params``, ``dfire_type_tables``,
-``dfire_bin_thresholds``, ``ensure_dfire_types`` and ``_res_onehot`` are
-copies of ``lightdock_tpu/engine/energy_batch.py``, held equal to their
-originals by ``tests/test_torch_host.py``.  The builder differs in one
-point: it never builds the (K, Nr, Nl) ``dfire_dq`` tensor of the step
-form (0.94 GB at 1k4c), since the kernel path reads the type-indexed
-tables; ``dfire_mode`` is 'gather' or 'types'.  The dense oracle still
-reads ``dfire_dq`` when a caller supplies one (:func:`from_reference`).
+``BatchScoringParams``, ``build_batch_params``, ``dfire_step_tables``,
+``dfire_type_tables``, ``dfire_bin_thresholds``, ``ensure_dfire_types``
+and ``_res_onehot`` are copies of ``lightdock_tpu/engine/energy_batch.py``,
+held equal to their originals by ``tests/test_torch_host.py``.  The
+builder differs in one point: ``dfire_mode='auto'`` picks 'types' at
+float32 where the original picks 'steps', so the (K, Nr, Nl) ``dfire_dq``
+tensor of the step form (0.94 GB at 1k4c) is built only when a caller asks
+for 'steps' (the v1 kernel K4 and the dense step form read it; the v2
+kernels read the type-indexed tables).
 
 :func:`torch_params` ports ``lightdock_tpu/engine/gso_jax.py``
 ``device_params``: floating arrays to the run dtype, integer arrays to
@@ -58,7 +59,7 @@ class BatchScoringParams:
     vdw_c_lig: Optional[np.ndarray] = None
     vdw_r_rec: Optional[np.ndarray] = None
     vdw_r_lig: Optional[np.ndarray] = None
-    # DFIRE step form (K, Nr, Nl); only from a caller, never built here
+    # DFIRE step form (K, Nr, Nl), built only for dfire_mode='steps'
     dfire_dq: Optional[np.ndarray] = None
     dfire_thresholds: Optional[np.ndarray] = None  # (K,) squared-distance steps
     # DFIRE type-indexed tables (O(Nr + Nl) memory; see dfire_type_tables)
@@ -96,6 +97,29 @@ def dfire_bin_thresholds(dist_to_bins, num_bins: int = 32) -> np.ndarray:
             m = slots[0]
             thresholds[k] = ((m + 1) / 2.0) ** 2
     return thresholds
+
+
+def dfire_step_tables(receptor_types: np.ndarray, ligand_types: np.ndarray,
+                      pot_flat: np.ndarray, dist_to_bins: np.ndarray,
+                      dtype=np.float32):
+    """Gather-free DFIRE step form: the per-pair value is
+    ``dq[0, i, j] + sum_k dq[k, i, j] * [d2 >= s_k]``, where ``dq[k]`` is
+    the forward difference over bins of the per-type-pair potential and
+    ``s_k`` the squared distance at which the bin first reaches k.  Channels
+    whose threshold is beyond the 15 A cutoff never fire and are dropped
+    (21 of 32 stay with the reference bins).  Returns (dq (K, Nr, Nl),
+    thresholds (K,)); thresholds[0] is 0 (bin 0 is the baseline)."""
+    num_bins = 32
+    p32 = potentials.potential_by_bins(pot_flat, num_bins)   # (169, 169, 32)
+    thresholds = dfire_bin_thresholds(dist_to_bins, num_bins)
+    live = np.nonzero(thresholds <= C.DFIRE_DIST_CUTOFF2)[0]
+    rt = receptor_types.astype(np.int64)
+    lt = ligand_types.astype(np.int64)
+    dq = np.empty((live.size, rt.size, lt.size), dtype=dtype)
+    for out_i, k in enumerate(live):
+        tbl = p32[:, :, k] - (p32[:, :, k - 1] if k > 0 else 0.0)
+        dq[out_i] = tbl.astype(dtype)[rt[:, None], lt[None, :]]
+    return dq, thresholds[live].astype(dtype)
 
 
 def dfire_type_tables(receptor_types: np.ndarray, ligand_types: np.ndarray,
@@ -157,9 +181,11 @@ def build_batch_params(receptor: DockingModel, ligand: DockingModel,
     """Build the scoring params of a receptor/ligand pair.
 
     dfire_mode: 'gather' keeps the reference's flat-table gather (the dense
-    oracle), 'types' also builds the type-indexed tables of the kernel path
-    (see :func:`dfire_type_tables`), 'auto' picks 'types' for float32 and
-    'gather' for float64.
+    oracle), 'steps' also builds the (K, Nr, Nl) step tables of the v1
+    kernel path (:func:`dfire_step_tables`, at ``dtype``), 'types' the
+    type-indexed tables of the v2 kernel path (:func:`dfire_type_tables`),
+    'auto' picks 'types' for float32 and 'gather' for float64 (the original
+    picks 'steps' for float32; see the module docstring).
     """
     method = receptor.method
     mem_mask = np.zeros(receptor.num_atoms, dtype=dtype)
@@ -179,9 +205,9 @@ def build_batch_params(receptor: DockingModel, ligand: DockingModel,
     if method == "dfire":
         if dfire_mode == "auto":
             dfire_mode = "types" if np.dtype(dtype) == np.float32 else "gather"
-        if dfire_mode not in ("gather", "types"):
-            raise ValueError(f"dfire_mode must be 'auto', 'gather' or "
-                             f"'types', got {dfire_mode!r}")
+        if dfire_mode not in ("gather", "steps", "types"):
+            raise ValueError(f"dfire_mode must be 'auto', 'gather', 'steps' "
+                             f"or 'types', got {dfire_mode!r}")
         p.atom_types_rec = receptor.atom_types.astype(np.int32)
         p.atom_types_lig = ligand.atom_types.astype(np.int32)
         pot = potential if potential is not None else potentials.load_potential()
@@ -190,7 +216,10 @@ def build_batch_params(receptor: DockingModel, ligand: DockingModel,
         p.potential = pot.astype(np.float64)
         d2b = tables.dfire_tables()["dist_to_bins"]
         p.dist_to_bins = d2b.astype(np.int32)
-        if dfire_mode == "types":
+        if dfire_mode == "steps":
+            p.dfire_dq, p.dfire_thresholds = dfire_step_tables(
+                p.atom_types_rec, p.atom_types_lig, pot, d2b, dtype=dtype)
+        elif dfire_mode == "types":
             p.dfire_rec_half, p.dfire_lig_onehot, p.dfire_thresholds = (
                 dfire_type_tables(p.atom_types_rec, p.atom_types_lig, pot,
                                   d2b, dtype=np.float64))

@@ -1,16 +1,21 @@
 """Host-facing GSO runner on torch.
 
-Port of ``lightdock_tpu/engine/gso_jax.py`` ``GsoJaxRunner`` for the
-kernel path: the host-side rand-0.7 stream (reference RNG mode), ``run``,
+Port of ``lightdock_tpu/engine/gso_jax.py`` ``GsoJaxRunner``: the
+host-side rand-0.7 stream (reference RNG mode), the energy modes, ``run``,
 ``run_segmented``, ``reset``, ``load_snapshot`` from a ``.npz`` sidecar,
 and the ``gso_N.out`` snapshots with their sidecars (``utils.output``),
-with ANM coefficients when ``use_anm``.  Energies go through
-``engine.energy_kernel``: the method's CUDA kernel on the card (the
-default device), its plain version where the caller asks for the CPU.
+with ANM coefficients when ``use_anm``.  The energy modes
+(:func:`make_energy`) are 'kernel' (JAX's 'pallas': the v2 kernels of
+``engine.energy_kernel``), 'kernel_v1' ('pallas_v1': K4 and K5), 'dense'
+('xla': ``energy_dense.batch_energy_chunked``) and 'auto', which is
+'kernel': the JAX crossover map was measured on a TPU, and the port's own
+rule waits for H100 data.  A kernel runs on the card (the default device);
+where the caller asks for the CPU, its plain version runs instead.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import pathlib
 from typing import Optional
@@ -21,9 +26,52 @@ import torch
 from ..utils.output import (read_state_sidecar, write_gso_output,
                             write_state_sidecar)
 from ..utils.rng import uniform_f64_stream
-from .energy_kernel import kernel_params, make_kernel_energy_fn
+from .energy_dense import batch_energy_chunked
+from .energy_kernel import (kernel_params, make_kernel_energy_fn,
+                            pose_chunked_energy)
 from .gso import StepOutput, SwarmState, init_state, run_swarm
 from .params import BatchScoringParams, torch_params
+
+ENERGY_MODES = ("auto", "kernel", "kernel_v1", "dense")
+
+
+def cuda_device(device, who: str) -> torch.device:
+    """``device`` as a torch device; raises for a GPU that torch does not
+    see (no fallback to the CPU).  Turns TF32 off: it would move pairs
+    across DFIRE bin edges and loosen the cull bounds."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who} runs on a CUDA GPU unless given "
+                           "device='cpu', and torch sees none")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def make_energy(params: BatchScoringParams, energy_mode: str, device,
+                dtype: torch.dtype, energy_chunk: int = 0, dq_bf16: bool = False):
+    """(tensor params, energy_fn) of an energy mode (see the module
+    docstring).  ``energy_chunk`` > 0 caps the poses of one call: dense
+    chunks, or kernel calls through ``pose_chunked_energy``; 0 scores every
+    pose at once.  ``dq_bf16`` stores the DFIRE step tables in bfloat16
+    where the mode reads them ('kernel_v1', 'dense' with step-form params);
+    each value is upcast before it is added."""
+    if energy_mode not in ENERGY_MODES:
+        raise ValueError(f"energy_mode must be one of {ENERGY_MODES}, got "
+                         f"{energy_mode!r}")
+    if energy_mode == "dense":
+        energy_fn = functools.partial(batch_energy_chunked, chunk=energy_chunk)
+    else:
+        kernel = "v1" if energy_mode == "kernel_v1" else "v2"
+        params = kernel_params(params, kernel)
+        energy_fn = make_kernel_energy_fn(params, device, dtype, kernel=kernel)
+        if energy_chunk > 0:
+            energy_fn = pose_chunked_energy(energy_fn, energy_chunk)
+    tparams = torch_params(params, device, dtype)
+    if dq_bf16 and tparams.dfire_dq is not None:
+        tparams = dataclasses.replace(
+            tparams, dfire_dq=tparams.dfire_dq.to(torch.bfloat16))
+    return tparams, energy_fn
 
 
 class GsoTorchRunner:
@@ -34,18 +82,12 @@ class GsoTorchRunner:
     def __init__(self, params: BatchScoringParams, positions, seed: int,
                  use_anm: bool, anm_rec: int, anm_lig: int,
                  output_directory: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("GsoTorchRunner runs on a CUDA GPU unless "
-                               "given device='cpu', and torch sees none")
-        # Full f32 in every matmul: TF32 would move pairs across DFIRE bin
-        # edges and loosen the cull bounds.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        params = kernel_params(params)
-        self.energy_fn = make_kernel_energy_fn(params, device, dtype)
-        self.params = torch_params(params, device, dtype)
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 energy_mode: str = "kernel", energy_chunk: int = 0,
+                 dq_bf16: bool = False):
+        device = cuda_device(device, "GsoTorchRunner")
+        self.params, self.energy_fn = make_energy(
+            params, energy_mode, device, dtype, energy_chunk, dq_bf16)
         self.device = device
         self.state = init_state(positions, use_anm, anm_rec, anm_lig,
                                 dtype=dtype, device=device)

@@ -2,8 +2,9 @@
 
 Each source is compiled at first use into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
-``lightdock_tpu_torch/build/`` and keyed by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``lightdock_tpu_torch/build/`` and keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused.
 Nothing is compiled at import time.
 """
 
@@ -56,7 +57,8 @@ _loaded: dict[str, BuiltLibrary] = {}
 
 def _target(name: str):
     src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
                          ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{key}.so"
 

@@ -1,9 +1,12 @@
-"""Host-side (NumPy) tiling helpers of the kernel path.
+"""Tiling helpers of the kernel path.
 
-Copies of the reference's helpers, which live in modules that import JAX
-at the top (``lightdock_tpu/ops/pallas_energy.py`` and
-``lightdock_tpu/engine/energy_pallas.py``).  Each copy is held equal to its
-original by ``tests/test_torch_tiling.py``; change both or neither.
+The host-side (NumPy) helpers are copies of the reference's, which live in
+modules that import JAX at the top (``lightdock_tpu/ops/pallas_energy.py``
+and ``lightdock_tpu/engine/energy_pallas.py``).  Each copy is held equal to
+its original by ``tests/test_torch_tiling.py``; change both or neither.
+The torch helpers at the end (:func:`check_pose_bits`,
+:func:`expand_pose_bits`, :func:`tile_sums`) serve the plain versions of
+the kernels with per-pose tile bits (K4 and K5).
 
 The tile shape is the port's own (see ``csrc/dfire_pairs.cu``): 32
 receptor atoms by 128 ligand atoms per kernel tile, with cull sub-boxes of
@@ -15,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .. import constants as C
 from ..engine.params import BatchScoringParams
@@ -176,3 +180,34 @@ def rec_box_geometry(rec_coords, r_tile: int, r_sub: int):
     centers, half = tile_boxes(rec_coords, r_sub)
     n_r = -(-rec_coords.shape[0] // r_tile)
     return pad_box_groups(centers, half, n_r, r_tile // r_sub)
+
+
+def check_pose_bits(rec_all, lig_all, active, iface_active, r_tile, l_tile):
+    """Shape checks of the coordinates and per-pose tile bits (n_r, n_l, G)
+    that K4 and K5 share; returns (n_r, n_l)."""
+    if lig_all.dim() != 3 or lig_all.shape[1] != 3:
+        raise ValueError(f"lig_all must be (G, 3, Nl), got {tuple(lig_all.shape)}")
+    g, _, nl = lig_all.shape
+    if rec_all.dim() != 3 or rec_all.shape[2] != 3 or rec_all.shape[0] not in (1, g):
+        raise ValueError(f"rec_all {tuple(rec_all.shape)} is neither rigid "
+                         f"(1, Nr, 3) nor per pose ({g}, Nr, 3)")
+    n_r, n_l = -(-rec_all.shape[1] // r_tile), -(-nl // l_tile)
+    for name, bits in (("active", active), ("iface_active", iface_active)):
+        if tuple(bits.shape) != (n_r, n_l, g):
+            raise ValueError(f"{name} {tuple(bits.shape)} != {(n_r, n_l, g)}")
+    return n_r, n_l
+
+
+def expand_pose_bits(bits, r_tile, l_tile):
+    """(n_r, n_l, P) per-pose tile bits as a (P, Nr_pad, Nl_pad) mask."""
+    return (bits.permute(2, 0, 1) != 0).repeat_interleave(
+        r_tile, 1).repeat_interleave(l_tile, 2)
+
+
+def tile_sums(contrib, n_r, r_tile, n_l, l_tile):
+    """(P,) sums of (P, Nr_pad, Nl_pad) pair terms: each tile's sum, then
+    the tiles in tile order, as the kernels add them.  (One reduction over
+    whole poses gave repeats on the CPU that differed in the last bits.)"""
+    p = contrib.shape[0]
+    tiles = contrib.reshape(p, n_r, r_tile, n_l, l_tile).sum(dim=(2, 4))
+    return tiles.reshape(p, n_r * n_l).sum(dim=1)

@@ -51,16 +51,20 @@ def _model(rng, n, method, num_anm, membrane=None):
         **kwargs)
 
 
-def toy_system(n_rec, n_lig, g, num_anm=0, seed=0, method="dfire"):
+def toy_system(n_rec, n_lig, g, num_anm=0, seed=0, method="dfire",
+               dfire_mode="auto"):
     """(params, positions (G, 7 + 2 num_anm), num_anm): random atoms in a
-    40 A cube, f32, the kernel path's DFIRE tables, poses within 10 A of
-    the receptor's centre with random unit quaternions."""
+    40 A cube, f32, the DFIRE tables of ``dfire_mode`` (by default the v2
+    kernel path's type-indexed ones; 'steps' for the v1 path), poses within
+    10 A of the receptor's centre with random unit quaternions.  The mode
+    changes no draw."""
     rng = np.random.RandomState(seed)
     rec = _model(rng, n_rec, method, num_anm)
     lig = _model(rng, n_lig, method, num_anm)
     params = build_batch_params(
         rec, lig, use_anm=num_anm > 0, dtype=np.float32,
-        potential=synthetic_potential() if method == "dfire" else None)
+        potential=synthetic_potential() if method == "dfire" else None,
+        dfire_mode=dfire_mode)
     cols = [rng.uniform(-10, 10, (g, 3)), rng.standard_normal((g, 4))]
     if num_anm:
         cols += [rng.uniform(-1, 1, (g, num_anm)), rng.uniform(-1, 1, (g, num_anm))]

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (DFIRE K1 and K2, elec/vdw K3) against
-their plain versions, and the energy path on the card against the CPU.
+"""The hand-written CUDA kernels (DFIRE K1, K2 and K4, elec/vdw K3 and K5)
+against their plain versions, and the energy path on the card against the
+CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports neither JAX nor
 the JAX package (the systems come from ``lightdock_tpu_torch.standin``),
@@ -17,7 +18,9 @@ from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     kernel_params, make_kernel_energy_fn)
 from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
+from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
+from lightdock_tpu_torch.ops import elec_vdw_pairs_v1 as k5  # noqa: E402
 from lightdock_tpu_torch.standin import toy_system  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -204,6 +207,106 @@ def test_dfire_anm_energy_fn_on_card_matches_cpu(cuda, worklist):
     out = {}
     for dev in ("cpu", cuda):
         fn = make_kernel_energy_fn(params, dev, torch.float32, worklist=worklist)
+        tp = torch_params(params, dev, torch.float32)
+        out[str(dev)] = fn(tp, *(torch.as_tensor(x, dtype=torch.float32,
+                                                 device=dev) for x in pose))
+    assert torch.isfinite(out["cuda"]).all()
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-5, atol=5e-5)
+
+
+def _v1_kernel_args(dev, g, method, num_anm, seed=3):
+    """The v1 kernel's inputs for ``g`` poses clustered by chunk (some
+    tiles culled by the energy path's box cull), per-pose interface bits
+    seeded at random; a per-pose receptor with ``num_anm`` > 0."""
+    params, pos, _ = toy_system(300, 170, g, num_anm=num_anm, seed=seed,
+                                method=method, dfire_mode="steps")
+    params = kernel_params(params, "v1")
+    fn = make_kernel_energy_fn(params, dev, torch.float32, kernel="v1")
+    tp = torch_params(params, dev, torch.float32)
+    rng = np.random.RandomState(seed)
+    n_c = -(-g // dp.POSE_BLOCK)
+    t = (np.repeat(rng.uniform(-35, 35, (n_c, 3)), dp.POSE_BLOCK, axis=0)[:g]
+         + rng.uniform(-3, 3, (g, 3)))
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    args, kwargs = fn.kernel_args(
+        tp, tensor(t), tensor(pos[:, 3:7]), tensor(pos[:, 7:7 + num_anm]),
+        tensor(pos[:, 7 + num_anm:]))
+    act = args[-2]
+    assert 0 < int(act.sum()) < act.numel()      # some tile-poses are culled
+    iface = torch.as_tensor((rng.rand(*act.shape) < 0.7).astype(np.int32), device=dev)
+    return args[:-1] + (iface,), kwargs
+
+
+def _check_v1(kernel, plain, args, kwargs, need_iface, rtol=5e-5):
+    kw = dict(kwargs, need_iface=need_iface)
+    before = kernel.launches
+    out = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(*args, **kw)
+    assert bool(torch.isfinite(out[0]).all())
+    torch.testing.assert_close(out[0], ref[0], rtol=rtol, atol=5e-5)
+    if need_iface:
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+        assert out[1].sum() > 0 and out[2].sum() > 0
+    else:
+        assert out[1] is None and out[2] is None
+    again = kernel(*args, **kw)
+    assert torch.equal(again[0], out[0])          # deterministic sums
+
+
+@pytest.mark.parametrize("g", [37, 200])
+@pytest.mark.parametrize("num_anm", [0, 2])
+@pytest.mark.parametrize("need_iface", [True, False])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k4_matches_plain(cuda, g, num_anm, need_iface, bf16):
+    """K4 (step-form DFIRE, per-pose bits) against its plain version, rigid
+    and per-pose receptor, float32 and bfloat16 step tables."""
+    args, kwargs = _v1_kernel_args(cuda, g, "dfire", num_anm)
+    assert args[0].shape[0] == (g if num_anm else 1)
+    if bf16:
+        args = args[:2] + (args[2].to(torch.bfloat16),) + args[3:]
+    _check_v1(k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain, args, kwargs, need_iface)
+
+
+@pytest.mark.parametrize("g", [37, 200])
+@pytest.mark.parametrize("num_anm", [0, 2])
+@pytest.mark.parametrize("need_iface", [True, False])
+def test_k5_matches_plain(cuda, g, num_anm, need_iface):
+    """K5 (elec/vdw, per-pose bits) against its plain version, rigid and
+    per-pose receptor."""
+    args, kwargs = _v1_kernel_args(cuda, g, "dna", num_anm)
+    _check_v1(k5.elec_vdw_pairs_v1, k5.elec_vdw_pairs_v1_plain, args, kwargs,
+              need_iface)
+
+
+def test_k5_coincident_pair(cuda):
+    """d2 == 0 is NaN in K5 as in its plain version."""
+    def vec(v):
+        return torch.full((1,), v, dtype=torch.float32, device=cuda)
+
+    ones = torch.ones((1, 1, 1), dtype=torch.int32, device=cuda)
+    args = (torch.zeros((1, 1, 3), device=cuda), torch.zeros((1, 3, 1), device=cuda),
+            vec(0.5), vec(0.5), vec(0.2), vec(0.2), vec(1.5), vec(1.5), ones, ones)
+    out = k5.elec_vdw_pairs_v1(*args, r_tile=32, l_tile=128)
+    ref = k5.elec_vdw_pairs_v1_plain(*args, r_tile=32, l_tile=128)
+    assert torch.isnan(out[0]).all() and torch.isnan(ref[0]).all()
+    assert torch.equal(out[1], ref[1]) and out[1].sum() == 1
+
+
+@pytest.mark.parametrize("method,num_anm", [("dfire", 0), ("dna", 2)])
+def test_v1_energy_fn_on_card_matches_cpu(cuda, method, num_anm):
+    params, pos, _ = toy_system(300, 170, 37, num_anm=num_anm, seed=4,
+                                method=method, dfire_mode="steps")
+    params = kernel_params(params, "v1")
+    k = num_anm
+    pose = [pos[:, :3], pos[:, 3:7], pos[:, 7:7 + k], pos[:, 7 + k:]]
+    out = {}
+    for dev in ("cpu", cuda):
+        fn = make_kernel_energy_fn(params, dev, torch.float32, kernel="v1")
         tp = torch_params(params, dev, torch.float32)
         out[str(dev)] = fn(tp, *(torch.as_tensor(x, dtype=torch.float32,
                                                  device=dev) for x in pose))

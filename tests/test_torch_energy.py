@@ -255,14 +255,19 @@ def test_energy_fn_matches_dense_f64():
 
 
 def test_kernel_path_refuses_what_it_does_not_run():
-    """DFIRE without the type-indexed tables, the work list for another
-    method, and a device other than cpu or cuda are refused; DFIRE with
-    receptor ANM runs through K1."""
+    """The v2 kernels for DFIRE without the type-indexed tables, the work
+    list for another method, and a device other than cpu or cuda are
+    refused; DFIRE with the step tables alone resolves to the v1 kernel K4
+    (``resolve_kernel``, as in JAX); DFIRE with receptor ANM runs through
+    K1."""
     import dataclasses
+
+    from lightdock_tpu_torch.ops.dfire_pairs_v1 import dfire_pairs_v1
     params, _ = _system()
     ours = from_reference(params)
     with pytest.raises(ValueError, match="type-indexed"):
-        make_kernel_energy_fn(ours, "cpu")
+        make_kernel_energy_fn(ours, "cpu", kernel="v2")
+    assert make_kernel_energy_fn(ours, "cpu").kernel is dfire_pairs_v1
     anm = dataclasses.replace(from_reference(ensure_dfire_types(params)),
                               use_anm=True,
                               rec_nmodes=np.ones((2, 300, 3), np.float32))

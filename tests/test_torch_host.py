@@ -97,6 +97,8 @@ def _models(module, method, num_anm, seed):
 @pytest.mark.parametrize("method,mode,num_anm,dtype", [
     ("dfire", "gather", 0, np.float64),
     ("dfire", "types", 2, np.float32),
+    ("dfire", "steps", 2, np.float32),
+    ("dfire", "steps", 0, np.float64),
     ("dfire", "auto", 0, np.float64),
     ("dna", "auto", 2, np.float32),
     ("pydock", "auto", 0, np.float64),
@@ -113,25 +115,33 @@ def test_build_batch_params_matches(method, mode, num_anm, dtype):
               potential=pot if method == "dfire" else None)
     ours = tparams.build_batch_params(rec, lig, dfire_mode=mode, **kw)
     ref = eb.build_batch_params(jrec, jlig, dfire_mode=mode, **kw)
-    assert ours.dfire_dq is None
-    _assert_params_equal(ours, ref, skip=("dfire_dq", "dfire_thresholds")
-                         if ref.dfire_dq is not None else ())
+    # 'auto' at f32 builds the type-indexed tables here and the step
+    # tables there; every other mode builds the same fields.
+    if mode == "auto" and ref.dfire_dq is not None:
+        assert ours.dfire_dq is None
+        _assert_params_equal(ours, ref, skip=("dfire_dq", "dfire_thresholds",
+                                              "dfire_rec_half", "dfire_lig_onehot"))
+    else:
+        _assert_params_equal(ours, ref)
+    assert (ours.dfire_dq is not None) == (method == "dfire" and mode == "steps")
     if method == "dfire":
         _assert_params_equal(tparams.ensure_dfire_types(ours),
                              eb.ensure_dfire_types(ref), skip=("dfire_dq",))
         np.testing.assert_array_equal(
             tparams.dfire_bin_thresholds(ours.dist_to_bins),
             eb.dfire_bin_thresholds(ref.dist_to_bins))
-        for x, y in zip(tparams.dfire_type_tables(ours.atom_types_rec,
-                                                  ours.atom_types_lig, pot,
-                                                  ours.dist_to_bins),
-                        eb.dfire_type_tables(ref.atom_types_rec,
-                                             ref.atom_types_lig, pot,
-                                             ref.dist_to_bins)):
-            np.testing.assert_array_equal(x, y)
+        for fn in ("dfire_type_tables", "dfire_step_tables"):
+            for x, y in zip(getattr(tparams, fn)(ours.atom_types_rec,
+                                                 ours.atom_types_lig, pot,
+                                                 ours.dist_to_bins, dtype=dtype),
+                            getattr(eb, fn)(ref.atom_types_rec,
+                                            ref.atom_types_lig, pot,
+                                            ref.dist_to_bins, dtype=dtype)):
+                assert x.dtype == y.dtype, fn
+                np.testing.assert_array_equal(x, y, err_msg=fn)
     with pytest.raises(ValueError, match="dfire_mode"):
         tparams.build_batch_params(*_models(tmodels, "dfire", 0, 1),
-                                   use_anm=False, dfire_mode="steps",
+                                   use_anm=False, dfire_mode="dense",
                                    potential=pot)
 
 
@@ -206,6 +216,11 @@ def test_toy_system_matches_graft_entry(method, num_anm, seed):
                                           "dfire_rec_half", "dfire_lig_onehot"))
     _assert_params_equal(kernel_params(ours),
                          kernel_params(tparams.from_reference(ref)))
+    if method == "dfire":
+        steps, spos, _ = standin.toy_system(60, 30, 9, num_anm=num_anm, seed=seed,
+                                            method=method, dfire_mode="steps")
+        np.testing.assert_array_equal(spos, rpos)
+        _assert_params_equal(steps, ref)   # the JAX stand-in builds the step form
 
 
 def test_membrane_system():

@@ -30,12 +30,17 @@ PORT_MODULES = [
     "lightdock_tpu_torch.ops._build",
     "lightdock_tpu_torch.ops.dfire_pairs",
     "lightdock_tpu_torch.ops.elec_vdw_pairs",
+    "lightdock_tpu_torch.ops.dfire_pairs_v1",
+    "lightdock_tpu_torch.ops.elec_vdw_pairs_v1",
     "lightdock_tpu_torch.engine.params",
     "lightdock_tpu_torch.engine.energy_dense",
     "lightdock_tpu_torch.engine.energy_kernel",
     "lightdock_tpu_torch.engine.gso",
     "lightdock_tpu_torch.engine.runner",
     "lightdock_tpu_torch.standin",
+    "lightdock_tpu_torch.parallel",
+    "lightdock_tpu_torch.parallel.multihost",
+    "lightdock_tpu_torch.parallel.farm",
 ]
 
 FORBIDDEN = ("jax", "lightdock_tpu", "__graft_entry__")
@@ -46,10 +51,11 @@ def _forbidden(name):
 
 
 def test_port_never_imports_jax():
-    """After importing every port module and building the stand-in systems
-    (and a kernel energy path on them), no ``jax``, no ``lightdock_tpu`` or
-    ``lightdock_tpu.*`` and no ``__graft_entry__`` is in ``sys.modules``;
-    ``chip_smoke.py`` imports none of them."""
+    """After importing every port module, building the stand-in systems, a
+    kernel energy path of each generation on them and a two-swarm farm that
+    takes a step, no ``jax``, no ``lightdock_tpu`` or ``lightdock_tpu.*``
+    and no ``__graft_entry__`` is in ``sys.modules``; ``chip_smoke.py``
+    imports none of them."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -60,6 +66,11 @@ def test_port_never_imports_jax():
             "standin.toy_system(8, 4, 2, num_anm=2, method='dna')\n"
             "standin.membrane_system(2, n_rec=40, n_lig=30)\n"
             "make_kernel_energy_fn(kernel_params(params), 'cpu')\n"
+            "steps, pos, _ = standin.toy_system(8, 4, 2, dfire_mode='steps')\n"
+            "make_kernel_energy_fn(kernel_params(steps, 'v1'), 'cpu', kernel='v1')\n"
+            "from lightdock_tpu_torch.parallel.farm import SwarmFarmRunner\n"
+            "SwarmFarmRunner(steps, [pos, pos], [0, 1], 1, False, 0, 0, device='cpu',\n"
+            "                energy_mode='kernel_v1', output_root=None).run_segmented(1)\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -18,7 +18,7 @@ from lightdock_tpu_torch.engine.runner import GsoTorchRunner  # noqa: E402
 
 
 def _toy(seed, n_rec=40, n_lig=26, g=24, dtype=np.float64, method="dfire",
-         num_anm=0):
+         num_anm=0, dfire_mode="auto"):
     """A small system with restraints on both sides, so the interface
     flags and the bias are exercised; DNA systems carry random charges,
     vdw energies and radii, and ``num_anm`` modes on each side."""
@@ -40,7 +40,8 @@ def _toy(seed, n_rec=40, n_lig=26, g=24, dtype=np.float64, method="dfire",
 
     params = build_batch_params(
         model(n_rec), model(n_lig), use_anm=num_anm > 0, dtype=dtype,
-        potential=synthetic_potential() if method == "dfire" else None)
+        potential=synthetic_potential() if method == "dfire" else None,
+        dfire_mode=dfire_mode)
     t = rng.uniform(-10, 10, size=(g, 3))
     q = rng.standard_normal((g, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
@@ -190,3 +191,67 @@ def test_runner_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         GsoTorchRunner(from_reference(params), pos, seed=1, use_anm=False,
                        anm_rec=0, anm_lig=0)
+
+
+@pytest.mark.parametrize("method,num_anm,seed", [("dfire", 0, 11), ("dna", 2, 15)])
+def test_kernel_v1_runner_matches_jax_pallas_v1_text(tmp_path, method, num_anm, seed):
+    """f64 on CPU, energy_mode='kernel_v1' (K4 or K5, plain versions)
+    against GsoJaxRunner(energy_mode='pallas_v1') in interpret mode: DFIRE
+    with the step tables, DNA with two ANM modes on each side; gso_1.out and
+    gso_10.out text-identical."""
+    params, pos = _toy(seed, method=method, num_anm=num_anm, dfire_mode="steps")
+    kw = dict(seed=324324, use_anm=num_anm > 0, anm_rec=num_anm, anm_lig=num_anm)
+    ref = GsoJaxRunner(params, pos, output_directory=str(tmp_path / "jax"),
+                       dtype=jnp.float64, energy_mode="pallas_v1", **kw)
+    ref.run(10)
+    port = GsoTorchRunner(from_reference(params), pos,
+                          output_directory=str(tmp_path / "torch"),
+                          dtype=torch.float64, device="cpu",
+                          energy_mode="kernel_v1", **kw)
+    assert port.energy_fn.kernel.__name__ == ("dfire_pairs_v1" if method == "dfire"
+                                              else "elec_vdw_pairs_v1")
+    final, _ = port.run(10)
+    assert not torch.equal(final.t, torch.as_tensor(pos[:, :3]))   # the swarm moved
+    for step in (1, 10):
+        a = (tmp_path / "jax" / f"gso_{step}.out").read_text()
+        b = (tmp_path / "torch" / f"gso_{step}.out").read_text()
+        assert a == b, f"gso_{step}.out differs"
+
+
+@pytest.mark.parametrize("method,num_anm", [("dfire", 0), ("pydock", 2)])
+def test_dense_runner_matches_jax_xla_text(tmp_path, method, num_anm):
+    """f64 on CPU, energy_mode='dense' (the dense oracle, chunked) against
+    GsoJaxRunner(energy_mode='xla'): gso_1.out and gso_10.out
+    text-identical."""
+    params, pos = _toy(16, method=method, num_anm=num_anm)
+    kw = dict(seed=324324, use_anm=num_anm > 0, anm_rec=num_anm, anm_lig=num_anm,
+              energy_chunk=7)
+    ref = GsoJaxRunner(params, pos, output_directory=str(tmp_path / "jax"),
+                       dtype=jnp.float64, energy_mode="xla", **kw)
+    ref.run(10)
+    port = GsoTorchRunner(from_reference(params), pos,
+                          output_directory=str(tmp_path / "torch"),
+                          dtype=torch.float64, device="cpu", energy_mode="dense", **kw)
+    port.run(10)
+    for step in (1, 10):
+        a = (tmp_path / "jax" / f"gso_{step}.out").read_text()
+        b = (tmp_path / "torch" / f"gso_{step}.out").read_text()
+        assert a == b, f"gso_{step}.out differs"
+
+
+def test_runner_energy_modes(tmp_path):
+    """'auto' is 'kernel' (the v2 kernels); an unknown mode raises; the
+    bf16 step tables reach K4 and stay close to the f32 run."""
+    params, pos = _toy(17, dtype=np.float32, dfire_mode="steps")
+    kw = dict(seed=5, use_anm=False, anm_rec=0, anm_lig=0, device="cpu")
+    auto = GsoTorchRunner(from_reference(params), pos, energy_mode="auto", **kw)
+    assert auto.energy_fn.kernel.__name__ == "dfire_pairs"
+    with pytest.raises(ValueError, match="energy_mode"):
+        GsoTorchRunner(from_reference(params), pos, energy_mode="xla", **kw)
+    f32 = GsoTorchRunner(from_reference(params), pos, energy_mode="kernel_v1", **kw)
+    b16 = GsoTorchRunner(from_reference(params), pos, energy_mode="kernel_v1",
+                         dq_bf16=True, **kw)
+    assert b16.params.dfire_dq.dtype == torch.bfloat16
+    a, b = f32.run(1)[1].scoring, b16.run(1)[1].scoring
+    assert not torch.equal(a, b)
+    assert float(((b - a) / a).abs().max()) < 0.05
