@@ -88,12 +88,28 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
 17. runs 4 swarms of the farm for 10 steps in ``energy_mode='kernel_v1'``:
     one K4 launch a step, step-1 scores equal to the kernel-mode farm's
     (5e-5); K4 against its plain version on these 800 poses as phase 16
-    holds K1.
+    holds K1;
+18. runs the table-selection probes P1-P6 (``lightdock_tpu_torch.probes``,
+    the ports of ``scripts/exp_*.py``), all 27 variants at the scripts'
+    shapes through the entry point's ``run_variant`` (every count set to 0
+    just before each variant and read just after: its wrapper, and no
+    other, launched), printing the scripts' ``name ms pairs/s chk=`` lines
+    (CUDA events, 20 calls after a warm-up); holds each kernel against its
+    plain version on the card bit for bit (the plain versions repeat the
+    kernels' order; the JAX probes' tolerances, met on the CPU by
+    ``tests/test_torch_probes.py``, are looser), P4-P6 also against the
+    plain version on the CPU, checks two launches bit-equal and P1's tak
+    equal to tourn, times the plain version and, where one PyTorch call
+    computes the same function (``torch.gather``, ``torch.sqrt``, one add),
+    that call; then prints P3's A/B line, v3gather's pairs/s against
+    v2chain's.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its f32 operations over
 67 TFLOP/s) is computed from the inputs of its timed call, counting the
-pair-poses of real atoms and poses only.
+pair-poses of real atoms and poses only (for a probe, the table entries
+its function reads on this run's data, its other operands, and its
+elements times ``PROBE_OPS``, bfloat16 ones over 134 TFLOP/s).
 
 Fails with a non-zero exit and no result line when there is no CUDA
 device, when it is not run from a checkout, or when any check fails.  The
@@ -120,8 +136,9 @@ ANM_STEPS = 30                     # depth of the DFIRE + ANM run (phase 9)
 ORACLE_CHUNK = 16                  # poses per dense-oracle chunk
 RTOL = ATOL = 5e-5
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s outside
-# the tensor cores.
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# the tensor cores; bfloat16 FLOP/s outside the tensor cores, twice f32
+# (NVIDIA's H100 architecture white paper: 133.8 TFLOP/s).
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 134e12
 # f32 operations per pair-pose in an active chunk-tile: d2 is 3 sub, 3 mul
 # and 2 add; DFIRE adds the accumulate; elec/vdw adds the reciprocal, the
 # elec product, mask and scale, then on near chunks the p^6 chain, the vdw
@@ -133,6 +150,35 @@ FARM_SWARMS, FARM_V1_SWARMS, FARM_SINGLE_STEPS = 32, 4, 10
 # f32 orders of the same ~56k pair terms part by a few ulps of the partial
 # sums (up to 3.2e-4 on the 200-pose cases).  1e-3 raw is 1.6e-5 of score.
 REORDER_ATOL = 1e-3
+# operations an element (P1: an element-rep; P2-P3: a pair; P4-P6: an
+# output element and rep) of each probe variant, counting a compare, a
+# select, an add, a multiply, a sqrt and a cast one each (loads, index
+# arithmetic and bfloat16 rounding not counted):
+#   select_reps (chain16 in bfloat16): the moved d2 (mul, add) 2; chain
+#     20 x (compare, add, select) 60; tak 20 x (compare, integer add) 40;
+#     tourn 20 x (compare, select) 40; the mask (compare, mul) 2; the sum 1.
+#   receptor_loop: d2 (3 sub, 3 mul, 2 add) 8; the slot (sqrt, mul, sub,
+#     cast, 2 clamps) 6; slot adds the cast to float; chain 20 x 3 and the
+#     mask 2; the accumulate 1.
+#   gather_form: bare's clip 2, slot 6, trunc_cast 7, touch and sqrt 1; a
+#     loop's accumulate 1 and its r add 1, row_loop (x 0 + 1) 2 and its
+#     product 1, parity_loop r % 2 and its add 2, chain 60, scalar_loop's
+#     difference 1.
+PROBE_OPS = {
+    ("select_reps", "chain"): 65, ("select_reps", "tak"): 45, ("select_reps", "tourn"): 45,
+    ("receptor_loop", "slot"): 16, ("receptor_loop", "gather"): 15,
+    ("receptor_loop", "chain"): 71,
+    ("gather_form", "bare"): 2, ("gather_form", "slot_gather"): 6,
+    ("gather_form", "static_loop"): 8, ("gather_form", "slice_loop"): 8,
+    ("gather_form", "row_loop"): 4, ("gather_form", "parity_loop"): 9,
+    ("gather_form", "touch"): 1, ("gather_form", "chain_loop"): 61,
+    ("gather_form", "sqrt"): 1, ("gather_form", "trunc_cast"): 7,
+    ("gather_form", "scalar_loop"): 2,
+}
+PROBE_REPLACES = {"P1": "scripts/exp_gather_kernel.py:85", "P2": "scripts/exp_gather2d.py:71",
+                  "P3": "scripts/exp_gather32.py:65", "P4": "scripts/exp_gather_forms.py:33",
+                  "P5": "scripts/exp_bisect.py:30", "P6": "scripts/exp_probe_ops.py:30"}
+PROBE_PLAIN_CALLS = {"P1": 2, "P2": 2, "P3": 2}   # timed plain calls; 5 elsewhere
 
 
 def fail(msg: str) -> None:
@@ -862,10 +908,251 @@ def farm_phases(card, counters):
     return k1_err, k4_err, launches["dfire_pairs_v1"]
 
 
-def record(name, source, replaces, launches, err, ms, plain_ms, bnd):
+def probe_table_entries(v, t):
+    """Table entries one call of probe variant ``v`` must read on this
+    run's inputs: for a gather, the distinct entries its indices pick; for
+    a chain (and P1's tournament), its 21 entries of each table it walks;
+    the touch one row, the row loop one row a rep; P2's slot none."""
+    import torch
+
+    from lightdock_tpu_torch.ops import probes as pops
+
+    kw = v.kwargs
+    kind = kw.get("mode", kw.get("form"))
+    if "tab" not in v.args or kind == "slot":
+        return 0
+    tab = t[v.args["tab"]]
+    reps = kw.get("reps", 1)
+    if v.op == "select_reps":
+        if kind != "tak":
+            return tab.numel()
+        d2 = t["d2"].reshape(t["d2"].shape[0], -1)
+        thr = torch.tensor(kw["thresholds"], dtype=torch.float32, device=d2.device)
+        lane = torch.arange(d2.shape[1], device=d2.device)
+        return distinct((torch.bucketize(d2 + float(i) * 1e-6, thr, right=True)   # passed
+                         * d2.shape[1] + lane for i in range(reps)), tab.numel())
+    if v.op == "receptor_loop":
+        r_count, n_slot, l_count = tab.shape
+        if kind == "chain":
+            return r_count * (pops.MAX_CHAIN + 1) * l_count
+        lig, rec = t["lig"], t["rec"]
+        lane = torch.arange(l_count, device=tab.device)
+
+        def keys():
+            for r in range(r_count):
+                d = [lig[:, c, :] - rec[r, c] for c in range(3)]
+                d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]      # (P, L)
+                yield (r * n_slot + pops.slot(d2)) * l_count + lane
+        return distinct(keys(), tab.numel())
+    tabs = tab if tab.dim() == 3 else tab[None]
+    n_slot, l_count = tabs.shape[1:]
+    if kind == "touch":
+        return l_count
+    if kind == "row_loop":
+        return reps * l_count
+    if kind == "chain_loop":
+        return reps * (pops.MAX_CHAIN + 1) * l_count
+    lane = torch.arange(l_count, device=tab.device)
+    x = t[v.args["x"]] if "x" in v.args else None
+    if kind == "bare":
+        slots = [t[v.args["idx"]].long().clamp(0, n_slot - 1)]
+    elif kind == "slot_gather":
+        slots = [pops.slot(x)]
+    elif kind == "static_loop":
+        slots = [pops.slot(x + float(r)) for r in range(reps)]
+    elif kind == "slice_loop":
+        slots = [r * n_slot + pops.slot(x + float(r)) for r in range(reps)]
+    else:   # parity_loop
+        slots = [r * n_slot + (pops.trunc(x) + r % 2).clamp(0, n_slot - 1).long()
+                 for r in range(reps)]
+    return distinct((k * l_count + lane for k in slots), tabs.numel())
+
+
+def distinct(keys, size):
+    """How many distinct values in [0, size) the tensors ``keys`` hold."""
+    import torch
+
+    seen = None
+    for k in keys:
+        if seen is None:
+            seen = torch.zeros(size, dtype=torch.bool, device=k.device)
+        seen[k.reshape(-1)] = True
+    return int(seen.sum())
+
+
+def probe_bound(v, t, out):
+    """(bound_ms, bound_by) of one probe variant's call: its output and
+    the operands its function reads once (of a table the entries of
+    :func:`probe_table_entries`, of rec the column the scalar loop reads)
+    over the HBM rate; its elements times ``PROBE_OPS`` over the peak of
+    its type outside the tensor cores."""
+    import torch
+
+    kw = v.kwargs
+    kind = kw.get("mode", kw.get("form"))
+    nbytes = out.numel() * out.element_size()
+    for arg, key in v.args.items():
+        x = t[key]
+        if arg == "tab":
+            nbytes += probe_table_entries(v, t) * x.element_size()
+            continue
+        if v.op == "gather_form" and arg == "rec":
+            x = x[:kw["reps"], 0]
+        nbytes += x.numel() * x.element_size()
+    if v.op == "select_reps":
+        elements = t["d2"].numel() * kw["reps"]
+    elif v.op == "receptor_loop":
+        elements = out.numel() * t["rec"].shape[0]
+    else:
+        elements = out.numel() * kw["reps"]
+    peak = PEAK_BF16 if v.dtype == torch.bfloat16 else PEAK_F32
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = elements * PROBE_OPS[(v.op, kind)] / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def probe_library(v, t):
+    """The one PyTorch call that computes a variant's function, or None."""
+    import torch
+
+    kind = v.kwargs.get("form")
+    if kind == "bare":
+        idx = t[v.args["idx"]].long()
+        return lambda: torch.gather(t[v.args["tab"]], 0, idx)
+    if kind == "sqrt":
+        return lambda: torch.sqrt(t["x"])
+    if kind == "touch":
+        row = t[v.args["tab"]][v.kwargs["row"], 0:1, :]
+        return lambda: t["x"] + row
+    return None
+
+
+def probe_phase(card):
+    """Phase 18: every probe variant through the entry point on the card,
+    against its plain version, timed; returns its records."""
+    import torch
+
+    from lightdock_tpu_torch import probes
+    from lightdock_tpu_torch.ops import probes as pops
+
+    counters = (pops.select_reps, pops.receptor_loop, pops.gather_form)
+    dev = probes.resolve_device("cuda")
+    records, results, timed = [], [], []
+    t_phase = time.perf_counter()
+    for pid in sorted(probes.SCRIPTS):
+        mod = probes.load(pid)
+        arrays = mod.inputs()
+        say(f"phase 18: [{card}] {pid} ({probes.SCRIPTS[pid]}.py)")
+        outs = {}
+        for v in mod.variants(arrays):
+            name = f"{pid}.{v.name}"
+            for c in counters:
+                c.launches = 0
+            res = probes.run_variant(pid, v, arrays, dev)
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+            say(f"phase 18: {res.line()}")
+            ours = launches[v.op]   # one call, the warm-up and the timed calls
+            check(ours == 2 + probes.TIMED_CALLS and sum(launches.values()) == ours,
+                  f"{name}: launches {launches} in its run")
+            results.append(res)
+
+            t = res.inputs
+            out = v(t)
+            ref = v.plain(t)
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape and out.dtype == ref.dtype
+                  and bool(torch.isfinite(out.float()).all()),
+                  f"{name}: kernel output {tuple(out.shape)} {out.dtype} not finite / shaped")
+            err = float((out.float() - ref.float()).abs().max())
+            same = torch.equal(out, ref) and torch.equal(res.out, out)
+            again = torch.equal(v(t), out)
+            note = ""
+            if pid in ("P4", "P5", "P6"):
+                cpu = v.plain(v.tensors(arrays, "cpu"))
+                note = f", equal to plain on the CPU {torch.equal(out.cpu(), cpu)}"
+                same = same and torch.equal(out.cpu(), cpu)
+            say(f"phase 18: {name} kernel against plain on the card: max|diff| {err:.3e}, "
+                f"bit-equal {same}, two launches bit-equal {again}{note}")
+            check(same and again, f"{name}: kernel disagrees with its plain version")
+            outs[v.name] = out
+            timed.append((name, v, t))
+            plain_ms = cuda_ms(lambda: v.plain(t), PROBE_PLAIN_CALLS.get(pid, 5))
+            lib = probe_library(v, t)
+            lib_ms, lib_note = None, "none"
+            if lib is not None:
+                lib_ms = cuda_ms(lib, 20)
+                lib_note = (f"{lib_ms:.4f} ms (max|diff| from the kernel "
+                            f"{float((lib() - out).abs().max()):.3e})")
+            bnd = probe_bound(v, t, out)
+            say(f"phase 18: [{card}] {name}: kernel {res.ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bnd[0]:.6f} ms ({bnd[1]}), PyTorch call {lib_note}, launches {ours}")
+            records.append(record(name, "lightdock_tpu_torch/csrc/probes.cu",
+                                  PROBE_REPLACES[pid], ours, err, res.ms, plain_ms, bnd, lib_ms))
+        if pid == "P1":
+            check(torch.equal(outs["tak"], outs["tourn"]), "P1: tak and tourn differ")
+    say(f"phase 18: [{card}] {probes.ab_line(results)}")
+    probe_device_times(timed, card)
+    say(f"phase 18: {len(records)} probe variants in {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
+def probe_device_times(timed, card, calls=10):
+    """Each probe variant's device time a call: the sum of the device
+    events of its ``calls`` calls over ``calls``, from one torch.profiler
+    window that runs the variants one after another with a fill kernel
+    between two variants to part their events.  Beside its work: for the
+    small forms the wrapper's call time is the host's, not the card's."""
+    import torch
+
+    sep = torch.zeros(1, device="cuda")
+
+    def pad():   # a profile's first and last device events may go unrecorded
+        for _ in range(50):
+            sep.zero_()
+        torch.cuda.synchronize()
+
+    def run_all():
+        pad()
+        for _, v, t in timed:
+            sep.zero_()
+            for _ in range(calls):
+                v(t)
+        pad()
+
+    _, dev, _ = device_profile(run_all)
+    groups, cur = [], None
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        if "FillFunctor" in e.name:
+            if cur:
+                groups.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(e)
+    if len(groups) != len(timed):
+        say(f"phase 18: [{card}] probe device times not measured: the profiler "
+            f"parted {len(dev)} device events into {len(groups)} groups for "
+            f"{len(timed)} variants")
+        return
+    kernels = {"select_reps": ("select_reps_kernel", "sum_rows_kernel", "rep_acc_kernel"),
+               "receptor_loop": ("receptor_loop_kernel",),
+               "gather_form": ("gather_form_kernel",)}
+    parts = []
+    for (name, v, _), events in zip(timed, groups):
+        names = kernels[v.op]
+        check(all(any(k in e.name for k in names) for e in events),
+              f"{name}: device events of another kernel {[e.name[:60] for e in events][:3]}")
+        us = sum(e.time_range.elapsed_us() for e in events) / calls
+        parts.append(f"{name} {us:.3f} us ({us * 1e3 / v.work:.5f} ns a pair; "
+                     f"{len(events)} events, {calls * len(names)} expected)")
+    say(f"phase 18: [{card}] probe device time a call (torch.profiler, {calls} calls "
+        "each): " + "; ".join(parts))
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
 
 def main() -> int:
@@ -899,7 +1186,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     built = _build.load_all(["dfire_pairs", "elec_vdw_pairs", "dfire_pairs_v1",
-                             "elec_vdw_pairs_v1"])
+                             "elec_vdw_pairs_v1", "probes"])
     build_s = time.perf_counter() - t0
     for name, lib in built.items():
         ptxas = [ln.strip() for ln in lib.log.splitlines()
@@ -986,6 +1273,9 @@ def main() -> int:
     err, err_v1, _ = farm_phases(card, counters)
     k1_err, k4_err = max(k1_err, err), max(k4_err, err_v1)
 
+    # -- 18. the table-selection probes P1-P6 ------------------------------------
+    probe_records = probe_phase(card)
+
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
         "the port imported jax or the JAX package")
@@ -1024,6 +1314,7 @@ def main() -> int:
                f"{pallas}:213", k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound),
         record("elec_vdw_pairs_v1", "lightdock_tpu_torch/csrc/elec_vdw_pairs_v1.cu",
                f"{pallas}:364", k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound),
+        *probe_records,
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (DFIRE K1, K2 and K4, elec/vdw K3 and K5)
-against their plain versions, and the energy path on the card against the
-CPU.
+"""The hand-written CUDA kernels (DFIRE K1, K2 and K4, elec/vdw K3 and K5,
+and the three probe templates of P1-P6) against their plain versions, and
+the energy path on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports neither JAX nor
 the JAX package (the systems come from ``lightdock_tpu_torch.standin``),
@@ -16,11 +16,13 @@ torch = pytest.importorskip("torch")
 
 from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     kernel_params, make_kernel_energy_fn)
+from lightdock_tpu_torch import probes  # noqa: E402
 from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs_v1 as k5  # noqa: E402
+from lightdock_tpu_torch.ops import probes as ops_probes  # noqa: E402
 from lightdock_tpu_torch.standin import toy_system  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -312,3 +314,35 @@ def test_v1_energy_fn_on_card_matches_cpu(cuda, method, num_anm):
                                                  device=dev) for x in pose))
     assert torch.isfinite(out["cuda"]).all()
     torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("probe", sorted(probes.SCRIPTS))
+def test_probe_kernels_match_plain(cuda, probe):
+    """Every variant of a probe (P1 with 40 reps, the rest at the scripts'
+    shapes): its kernel template (select_reps, receptor_loop or
+    gather_form) against its plain version on the card, bit for bit (the
+    plain versions repeat the kernels' order); one launch a call; two
+    launches bit-equal."""
+    mod = probes.load(probe)
+    arrays = mod.inputs()
+    variants = mod.variants(arrays, reps=40) if probe == "P1" else mod.variants(arrays)
+    for v in variants:
+        t = v.tensors(arrays, cuda)
+        before = v.counter.launches
+        out = v(t)
+        torch.cuda.synchronize()
+        assert v.counter.launches == before + 1, v.name
+        ref = v.plain(t)
+        assert out.dtype == ref.dtype and out.shape == ref.shape, v.name
+        assert torch.isfinite(out.float()).all(), v.name
+        assert torch.equal(out, ref), (v.name, float((out.float() - ref.float()).abs().max()))
+        assert torch.equal(v(t), out), v.name
+
+
+def test_bare_gather_clips_on_card(cuda):
+    """Out-of-range indices of the bare gather are clipped on the card as
+    in the plain version."""
+    tab = torch.randn((32, 256), device=cuda)
+    idx = torch.randint(-40, 72, (32, 256), dtype=torch.int32, device=cuda)
+    out = ops_probes.gather_form("bare", tab=tab, idx=idx)
+    assert torch.equal(out, ops_probes.gather_form_plain("bare", tab=tab, idx=idx))

@@ -32,6 +32,7 @@ PORT_MODULES = [
     "lightdock_tpu_torch.ops.elec_vdw_pairs",
     "lightdock_tpu_torch.ops.dfire_pairs_v1",
     "lightdock_tpu_torch.ops.elec_vdw_pairs_v1",
+    "lightdock_tpu_torch.ops.probes",
     "lightdock_tpu_torch.engine.params",
     "lightdock_tpu_torch.engine.energy_dense",
     "lightdock_tpu_torch.engine.energy_kernel",
@@ -41,9 +42,17 @@ PORT_MODULES = [
     "lightdock_tpu_torch.parallel",
     "lightdock_tpu_torch.parallel.multihost",
     "lightdock_tpu_torch.parallel.farm",
+    "lightdock_tpu_torch.probes",
+    "lightdock_tpu_torch.probes.__main__",
+    "lightdock_tpu_torch.probes.exp_gather_kernel",
+    "lightdock_tpu_torch.probes.exp_gather2d",
+    "lightdock_tpu_torch.probes.exp_gather32",
+    "lightdock_tpu_torch.probes.exp_gather_forms",
+    "lightdock_tpu_torch.probes.exp_bisect",
+    "lightdock_tpu_torch.probes.exp_probe_ops",
 ]
 
-FORBIDDEN = ("jax", "lightdock_tpu", "__graft_entry__")
+FORBIDDEN = ("jax", "lightdock_tpu", "__graft_entry__", "scripts")
 
 
 def _forbidden(name):
@@ -52,10 +61,10 @@ def _forbidden(name):
 
 def test_port_never_imports_jax():
     """After importing every port module, building the stand-in systems, a
-    kernel energy path of each generation on them and a two-swarm farm that
-    takes a step, no ``jax``, no ``lightdock_tpu`` or ``lightdock_tpu.*``
-    and no ``__graft_entry__`` is in ``sys.modules``; ``chip_smoke.py``
-    imports none of them."""
+    kernel energy path of each generation on them, a two-swarm farm that
+    takes a step and the P6 probe, no ``jax``, no ``lightdock_tpu`` or
+    ``lightdock_tpu.*``, no ``__graft_entry__`` and no ``scripts`` is in
+    ``sys.modules``; ``chip_smoke.py`` imports none of them."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -71,6 +80,8 @@ def test_port_never_imports_jax():
             "from lightdock_tpu_torch.parallel.farm import SwarmFarmRunner\n"
             "SwarmFarmRunner(steps, [pos, pos], [0, 1], 1, False, 0, 0, device='cpu',\n"
             "                energy_mode='kernel_v1', output_root=None).run_segmented(1)\n"
+            "from lightdock_tpu_torch import probes\n"
+            "probes.run(['P6'], probes.resolve_device('cpu'), calls=1, say=lambda s: None)\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

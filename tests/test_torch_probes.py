@@ -1,0 +1,253 @@
+"""The port's table-selection probes P1-P6 (``lightdock_tpu_torch.probes``,
+plain versions on the CPU) against the JAX probes they port
+(``scripts/exp_*.py``), run in Pallas interpret mode.
+
+Each script is loaded with ``signal.alarm`` and ``signal.signal`` patched
+(a script arms a kill of its process at import) and with
+``pl.pallas_call`` recording: every call runs in interpret mode and keeps
+its operands and output, and ``jax.jit`` passes its function through.
+P1-P3 then run the script's own ``run`` (its kernels and BlockSpecs) at
+small shapes, P1 with REPS = 3 and (P, R, L) = (2, 8, 128), P2 and P3 at
+R = 16; P4-P6 run all their probes at import, at their own shapes.  Every
+variant's plain version is held against the JAX output on the arrays of
+the port's ``inputs()``, which must equal the recorded operands bit for
+bit.
+
+Tolerances: bit-equal wherever the two sum in one order (every variant of
+P2-P6: the loops over r and reps run in order on both sides).  P1's
+float32 variants sum (R, L) in XLA's order against the port's fixed tree:
+rtol 1e-6 (measured 4.6e-7).  P1's chain16 rounds each rep's float32 sum
+to bfloat16 on both sides: one bfloat16 ulp, rtol 2^-8 (measured 0, at
+3 reps and at 300, where i > 256 is inexact in bfloat16).
+"""
+
+import importlib.util
+import pathlib
+import signal
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from jax.experimental import pallas as pl  # noqa: E402
+
+from lightdock_tpu_torch import probes  # noqa: E402
+from lightdock_tpu_torch.ops import probes as ops  # noqa: E402
+from lightdock_tpu_torch.probes import __main__ as entry  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+P1_SHAPES, P1_REPS = dict(P=2, R=8, L=128), 3
+CHAIN16_LONG_REPS = 300   # past i = 256, where i in bfloat16 stops being exact
+LOOP_R = 16
+# Variant names of each probe in the script's order (the port's variants()).
+NAMES = {
+    "P1": ["chain", "tak", "tourn", "chain16"],
+    "P2": ["slot", "gather", "chain"],
+    "P3": ["v3gather", "v2chain"],
+    "P4": ["bare_gather", "computed_idx_gather", "fori_static_tab_gather",
+           "fori_plload_gather", "unrolled_static_slices"],
+    "P5": ["bare_gather_32", "computed_idx_gather", "fori_dyn3dslice_64",
+           "fori_gather_64", "vmem_53mb_touch", "chain_fori_64"],
+    "P6": ["sqrt", "trunc_cast", "gather_static_tab", "gather_dyn_tab",
+           "smem_scalar_loop", "fori_dyn_gather", "where_chain20"],
+}
+CASES = [(p, n) for p in sorted(NAMES) for n in NAMES[p]]
+
+
+def _quiet_scripts(mp):
+    """Patches, for a MonkeyPatch context, what a script changes at import:
+    its kill alarm and its insert into ``sys.path``."""
+    mp.setattr(signal, "alarm", lambda *a: 0)
+    mp.setattr(signal, "signal", lambda *a: None)
+    mp.setattr(sys, "path", list(sys.path))
+
+
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(f"_probe_{name}",
+                                                  REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def recorded():
+    """{probe: [(operands, output) of each pallas_call, in call order]},
+    the scripts run at the small shapes of the module docstring."""
+    calls = []
+    real = pl.pallas_call
+
+    def recording(kernel, **kwargs):
+        f = real(kernel, interpret=True, **kwargs)
+        rec = {}
+        calls.append(rec)
+
+        def call(*operands):
+            if "out" not in rec:   # the scripts call again only to time
+                rec["operands"] = [np.asarray(o) for o in operands]
+                rec["out"] = np.asarray(f(*operands))
+            return rec["out"]
+        return call
+
+    out = {}
+    path = list(sys.path)
+    with pytest.MonkeyPatch.context() as mp:
+        _quiet_scripts(mp)
+        mp.setattr(pl, "pallas_call", recording)
+        mp.setattr(jax, "jit", lambda f, **kw: f)
+        m = _load_script("exp_gather_kernel")
+        m.REPS = P1_REPS
+        m.P, m.R, m.L = P1_SHAPES["P"], P1_SHAPES["R"], P1_SHAPES["L"]
+        n = len(calls)
+        for body, dtype in ((m.chain_body, jax.numpy.float32), (m.tak_body, jax.numpy.float32),
+                            (m.tourn_body, jax.numpy.float32),
+                            (m.chain_body, jax.numpy.bfloat16)):
+            m.run("probe", body, dtype)   # chain16's print of a bfloat16 sum fails after the call
+        out["P1"] = calls[n:]
+        m.REPS = CHAIN16_LONG_REPS
+        m.run("probe", m.chain_body, jax.numpy.bfloat16)
+        out["P1.chain16_long"] = calls[-1]
+        for probe, name, modes in (("P2", "exp_gather2d", ("slot", "gather", "chain")),
+                                   ("P3", "exp_gather32", ("v3gather", "v2chain"))):
+            m = _load_script(name)
+            m.R = LOOP_R
+            n = len(calls)
+            for mode in modes:
+                m.run(mode)
+            out[probe] = calls[n:]
+        for probe in ("P4", "P5", "P6"):
+            n = len(calls)
+            _load_script(probes.SCRIPTS[probe])
+            out[probe] = calls[n:]
+    assert sys.path == path   # the scripts' own inserts into the path are undone
+    return out
+
+
+def _port(probe):
+    mod = probes.load(probe)
+    if probe == "P1":
+        arrays = mod.inputs(**P1_SHAPES)
+        return arrays, mod.variants(arrays, reps=P1_REPS)
+    if probe in ("P2", "P3"):
+        arrays = mod.inputs(R=LOOP_R)
+    else:
+        arrays = mod.inputs()
+    return arrays, mod.variants(arrays)
+
+
+def _bits(t):
+    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.mark.parametrize("probe,name", CASES)
+def test_plain_matches_jax_probe(recorded, probe, name):
+    """A variant's plain version against the JAX probe's interpret-mode
+    output on the same inputs, at the tolerances of the module docstring.
+    ``fori_plload_gather`` (P4) cannot run on this JAX, which has no
+    ``pl.load``: it computes what ``unrolled_static_slices`` computes and is
+    held against that probe's output."""
+    arrays, variants = _port(probe)
+    assert [v.name for v in variants] == NAMES[probe]
+    i = NAMES[probe].index(name)
+    v, rec = variants[i], recorded[probe][i]
+    t = v.tensors(arrays, "cpu")
+    assert len(rec["operands"]) == len(v.args)
+    for op, key in zip(rec["operands"], v.args.values()):
+        assert t[key].shape == op.shape
+        assert np.array_equal(_bits(t[key]), op.view(np.int16) if op.dtype.itemsize == 2 else op), key
+    if name == "fori_plload_gather":
+        assert "out" not in rec   # the probe raised: no pl.load
+        ref = recorded[probe][NAMES[probe].index("unrolled_static_slices")]["out"]
+    else:
+        ref = rec["out"]
+    got = v(t)
+    assert got.shape == ref.shape and got.dtype == v.dtype
+    got, ref = got.float().numpy(), ref.astype(np.float32)
+    if probe == "P1" and name != "chain16":
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+    elif name == "chain16":
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -8, atol=0)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_chain16_long_reps_matches_jax(recorded):
+    """chain16 at 300 reps, where the bfloat16 rep index ``i`` is no longer
+    exact (i > 256) and the bfloat16 accumulator's ulp (128 past 2^14)
+    exceeds one rep's sum (about 90), against the JAX probe in interpret
+    mode: within one bfloat16 ulp, rtol 2^-8 (measured 0)."""
+    mod = probes.load("P1")
+    arrays = mod.inputs(**P1_SHAPES)
+    v = mod.variants(arrays, reps=CHAIN16_LONG_REPS)[3]
+    assert v.name == "chain16" and v.dtype == torch.bfloat16
+    rec = recorded["P1.chain16_long"]
+    t = v.tensors(arrays, "cpu")
+    for op, key in zip(rec["operands"], v.args.values()):
+        assert np.array_equal(_bits(t[key]), op.view(np.int16)), key
+    got, ref = v(t).float().numpy(), rec["out"].astype(np.float32)
+    np.testing.assert_allclose(got, ref, rtol=2.0 ** -8, atol=0)
+
+
+def test_p1_tak_equals_tourn_not_chain():
+    """tak and tourn select the same entry exactly; chain adds deltas, a
+    different function (as in the script)."""
+    mod = probes.load("P1")
+    arrays = mod.inputs(**P1_SHAPES)
+    out = {v.name: v(v.tensors(arrays, "cpu")) for v in mod.variants(arrays, reps=P1_REPS)}
+    assert torch.equal(out["tak"], out["tourn"])
+    assert not torch.allclose(out["tak"], out["chain"])
+
+
+def test_thresholds_and_shapes_match_scripts():
+    """The port's thresholds and shapes are the scripts'."""
+    path = list(sys.path)
+    with pytest.MonkeyPatch.context() as mp:
+        _quiet_scripts(mp)
+        s1, s3 = _load_script("exp_gather_kernel"), _load_script("exp_gather32")
+    assert sys.path == path
+    p1, p3 = probes.load("P1"), probes.load("P3")
+    assert p1.THRESH == s1.THRESH and (p1.P, p1.R, p1.L, p1.K, p1.REPS) == (s1.P, s1.R, s1.L, s1.K, s1.REPS)
+    assert p3.THRESH == s3.THRESH and (p3.P, p3.L, p3.R) == (s3.P, s3.L, s3.R)
+
+
+def test_bare_gather_clips_indices():
+    """``bare`` clips its indices into the table (the kernel reads no
+    memory outside it): out-of-range indices take the first or last slot."""
+    tab = torch.arange(32 * 4, dtype=torch.float32).reshape(32, 4)
+    idx = torch.tensor([[-3, 0, 31, 40]], dtype=torch.int32)
+    out = ops.gather_form("bare", tab=tab, idx=idx)
+    assert out.tolist() == [[0.0, 1.0, 31 * 4 + 2.0, 31 * 4 + 3.0]]
+
+
+@pytest.mark.parametrize("wrapper", ["select_reps", "receptor_loop", "gather_form"])
+def test_wrappers_refuse_other_devices(wrapper):
+    """No fallback: a tensor on neither the CPU nor the card raises."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        if wrapper == "select_reps":
+            ops.select_reps(torch.empty((1, 1, 256), device=meta),
+                            torch.empty((21, 1, 256), device=meta),
+                            probes.load("P1").THRESH, "chain", 1)
+        elif wrapper == "receptor_loop":
+            ops.receptor_loop(torch.empty((1, 3, 8), device=meta), torch.empty((2, 3), device=meta),
+                              torch.empty((2, 32, 8), device=meta), probes.load("P2").THRESH,
+                              "gather")
+        else:
+            ops.gather_form("sqrt", torch.empty((2, 8), device=meta))
+
+
+def test_entry_point_on_cpu(capsys):
+    """``python -m lightdock_tpu_torch.probes --device cpu --only P6``
+    prints one line a variant with its sum; without a GPU the default
+    device raises."""
+    assert entry.main(["--only", "P6", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("P6 (exp_probe_ops.py) on cpu")
+    assert [ln.split()[0] for ln in lines[1:]] == [f"P6.{n}" for n in NAMES["P6"]]
+    assert all(" ms " in ln and "pairs/s" in ln and "chk=" in ln for ln in lines[1:])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry.main(["--only", "P6"])
