@@ -8,20 +8,24 @@ process per source, all at once), then drives five paths and a farm, each
 on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
-   versions and the kernel build times;
+   versions, the kernel build times with ptxas' registers, and the
+   registers and resident warps an SM of K1 and K2;
 2. holds the DFIRE kernel (K1) against its plain PyTorch version on the
    card, at the DFIRE path's shapes (200 poses) and at 37 poses (pose
    padding), with and without the moved gate, and for poses clustered so
    that some chunk-tiles are far (the kernel's far branch) with and
    without interface flags: raw sums to rtol/atol 5e-5, interface flags
-   exactly;
+   exactly; then K1 and K2, rigid and per-pose receptor, on pairs at
+   every bin edge and within 64 ulps either side
+   (``standin.bin_edge_case``);
 3. runs the DFIRE path, ``GsoTorchRunner`` for 100 GSO steps on the
    1ppe-shaped DFIRE system (1615 x 221 atoms, 200 glowworms, rigid, f32)
    through ``run_segmented(100, 10)``, writing gso_1.out, gso_10.out, ...
    to a temporary directory; checks finite scores, one K1 launch per step,
    the snapshots, and the step-1 scores against the dense oracle (5e-5);
 4. times K1 and its plain version at the path's shapes (CUDA events) and
-   the 100-step run (min of 5, reset before each);
+   the 100-step run (min of 5, reset before each), with K1's registers,
+   resident warps an SM and its bound on operations;
 5. times steps 1-20 one at a time, and profiles steps 11-30 with
    torch.profiler: wall time, device busy time and share, device ops and
    kernel launch calls per step, and the kernel's device time;
@@ -56,7 +60,8 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
 12. times K2 at G = 200 (CUDA events), its compaction, pair and second
     passes alone (torch.profiler), K1 on the same inputs, K1 with the
     per-pose receptor of phase 9, the plain version, and phases 4 and 5
-    for the 1k4c path;
+    for the 1k4c path, with K2's registers, resident warps and bound on
+    operations;
 13. holds the step-form DFIRE kernel (K4, the v1 mode) against its plain
     version at the 1ppe shapes with the step tables: 200 and 37 poses,
     with and without the moved gate, clustered poses with culled
@@ -83,8 +88,9 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
     step-1 scores (5e-5), and it reports over how many of the 10 steps
     their neighbour counts agree and whether the gso_1 and gso_10 text is
     byte-identical (sums over other pose batches may round apart); times
-    the 100 steps (min of 5, reset before each) as aggregate poses/s and
-    profiles steps 11-30;
+    K1 on the 6,400 step-1 poses with its bound, the 100 steps (min of 5,
+    reset before each) as aggregate poses/s, K1's registers and resident
+    warps, and profiles steps 11-30;
 17. runs 4 swarms of the farm for 10 steps in ``energy_mode='kernel_v1'``:
     one K4 launch a step, step-1 scores equal to the kernel-mode farm's
     (5e-5); K4 against its plain version on these 800 poses as phase 16
@@ -150,6 +156,10 @@ FARM_SWARMS, FARM_V1_SWARMS, FARM_SINGLE_STEPS = 32, 4, 10
 # f32 orders of the same ~56k pair terms part by a few ulps of the partial
 # sums (up to 3.2e-4 on the 200-pose cases).  1e-3 raw is 1.6e-5 of score.
 REORDER_ATOL = 1e-3
+# The band of float32 ulps around each DFIRE bin edge where phase 2 holds
+# K1 and K2 to plain: the band in which tests/test_torch_dfire_bins.py
+# models the kernels' slot on the CPU.
+EDGE_ULPS = 64
 # operations an element (P1: an element-rep; P2-P3: a pair; P4-P6: an
 # output element and rep) of each probe variant, counting a compare, a
 # select, an add, a multiply, a sqrt and a cast one each (loads, index
@@ -588,6 +598,62 @@ def bound(main, out, ev=False):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ops_bound(main):
+    """The operations half of a DFIRE call's :func:`bound`, in ms: the same
+    work for every version of the kernel, whatever its table's bytes."""
+    return pair_poses(main, main[0][3], chunks=True) * FLOPS_DFIRE / PEAK_F32 * 1e3
+
+
+def edge_cases(phase):
+    """K1 and K2, rigid and per-pose receptor, against plain on pairs at
+    every bin edge and within ``EDGE_ULPS`` ulps either side
+    (``standin.bin_edge_case``).  Returns the max errors of K1 and K2."""
+    import types
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+
+    err = {dp.dfire_pairs: 0.0, dp.dfire_pairs_worklist: 0.0}
+    path = types.SimpleNamespace(label=f"bin edges +-{EDGE_ULPS} ulps")
+    for per_pose in (False, True):
+        case = standin.bin_edge_case("cuda", per_pose=per_pose, ulps=EDGE_ULPS)
+        for kernel, plain in ((dp.dfire_pairs, dp.dfire_pairs_plain),
+                              (dp.dfire_pairs_worklist, dp.dfire_pairs_worklist_plain)):
+            err[kernel] = max(err[kernel], compare(
+                path, case.args, case.kwargs, phase,
+                f"G={case.d2.shape[0]} per-pose receptor {per_pose}", kernel, plain))
+    return err[dp.dfire_pairs], err[dp.dfire_pairs_worklist]
+
+
+def occupancy(lib):
+    """{kernel: (registers a thread, resident warps an SM)} of K1 and K2,
+    rigid and per pose, from a DFIRE library's ``dfire_pairs_occupancy``
+    (``csrc/dfire_occupancy.cuh``)."""
+    import ctypes
+
+    fn = lib.dfire_pairs_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    out = {}
+    for which, name in enumerate(("K1", "K1 per-pose", "K2", "K2 per-pose")):
+        blocks, regs, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = fn(which, ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(smem))
+        check(err == 0, f"dfire_pairs_occupancy({which}): CUDA error {err}")
+        out[name] = (regs.value, blocks.value * 256 // 32)
+    return out
+
+
+def occupancy_report(phase, card, label, kernel, main, occ):
+    """Phase ``phase``'s line of a DFIRE kernel's registers, resident warps
+    an SM and bound on operations on ``main`` (the same work whatever the
+    kernel's table bytes)."""
+    which = ("K2" if "worklist" in kernel.__name__ else "K1") + (
+        " per-pose" if main[0][0].shape[0] > 1 else "")
+    regs, warps = occ[which]
+    say(f"phase {phase}: [{card}] {label}: {which} {regs} registers, {warps} "
+        f"resident warps an SM, bound {ops_bound(main):.4f} ms (operations)")
+
+
 def coincident_pair(phase, kernel, plain, name):
     """A coincident atom pair: NaN in an elec/vdw kernel (K3 or K5) and in
     its plain version."""
@@ -753,7 +819,8 @@ def farm_kernel_cases(runner, phase, label, kernel, plain):
     """A farm's kernel against its plain version on the farm's step-1
     inputs: all S x G poses in one call, in the order the energy path hands
     them over (Morton order of the translation; moved poses first under the
-    gate), with and without the moved gate.  Returns the max error."""
+    gate), with and without the moved gate.  Returns the max error and
+    the ungated call."""
     import types
 
     import torch
@@ -776,21 +843,23 @@ def farm_kernel_cases(runner, phase, label, kernel, plain):
             runner.params, *(x[order] for x in pose),
             None if moved is None else moved[order])
 
-    max_err = 0.0
+    max_err, main = 0.0, None
     for gated in (False, True):
         moved = (torch.rand(n, generator=gen, device=runner.device) < 0.6) if gated else None
         args, kwargs = inputs(moved)
         max_err = max(max_err, compare(path, args, kwargs, phase,
                                        f"G={n} step-1 inputs moved_gate={gated}",
                                        atol=REORDER_ATOL))
-    return max_err
+        main = main or (args, kwargs)
+    return max_err, main
 
 
-def farm_phases(card, counters):
+def farm_phases(card, counters, occ):
     """Phases 16 and 17: the 32-swarm farm in the kernel mode against single
-    runs and K1 against plain on its inputs, its poses/s and profile, then
-    4 swarms in the v1 mode and K4 against plain on theirs.  Returns K1's
-    and K4's max errors and K4's launches."""
+    runs and K1 against plain on its inputs, K1 a call on them with its
+    bound, registers and resident warps (``occ``), the farm's poses/s and
+    profile, then 4 swarms in the v1 mode and K4 against plain on theirs.
+    Returns K1's and K4's max errors and K4's launches."""
     import numpy as np
     import torch
 
@@ -840,7 +909,13 @@ def farm_phases(card, counters):
     for name, x in final._asdict().items():
         if x.is_floating_point():
             check(bool(torch.isfinite(x).all()), f"{label}: non-finite {name}")
-    k1_err = farm_kernel_cases(runner, 16, label, dp.dfire_pairs, dp.dfire_pairs_plain)
+    k1_err, farm_main = farm_kernel_cases(runner, 16, label, dp.dfire_pairs,
+                                          dp.dfire_pairs_plain)
+    out = dp.dfire_pairs(*farm_main[0], **farm_main[1])
+    farm_bound = bound(farm_main, out)
+    farm_k1_ms = cuda_ms(lambda: dp.dfire_pairs(*farm_main[0], **farm_main[1]), 20)
+    say(f"phase 16: [{card}] {label}: K1 on the {n_all} step-1 poses {farm_k1_ms:.4f} ms "
+        f"a call, bound {farm_bound[0]:.4f} ms ({farm_bound[1]})")
 
     # Timing, which also keeps the first steps' neighbour counts.
     timer = farm(params, swarms, "kernel", None)
@@ -858,6 +933,8 @@ def farm_phases(card, counters):
         f"({best / STEPS * 1e3:.3f} ms a step; all: {', '.join(f'{x:.4f}' for x in times)})")
     check(all(math.isfinite(x) for x in times), "farm timing failed")
     farm_nn = outs.num_neighbors[:FARM_SINGLE_STEPS].cpu()
+    occupancy_report(16, card, f"{label}, K1 at {n_all} poses", dp.dfire_pairs,
+                     farm_main, occ)
 
     # Swarms 0 and 31 alone, from the same positions.
     for i in (0, FARM_SWARMS - 1):
@@ -903,8 +980,8 @@ def farm_phases(card, counters):
           f"v1 farm: kernel launches {launches} in {FARM_SINGLE_STEPS} steps")
     check(close and bool(torch.isfinite(final.scoring).all()),
           "v1 farm step-1 scores differ from the kernel-mode farm's")
-    k4_err = farm_kernel_cases(v1, 17, f"farm {FARM_V1_SWARMS} x {N_POSES} kernel_v1",
-                               k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain)
+    k4_err, _ = farm_kernel_cases(v1, 17, f"farm {FARM_V1_SWARMS} x {N_POSES} kernel_v1",
+                                  k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain)
     return k1_err, k4_err, launches["dfire_pairs_v1"]
 
 
@@ -1194,6 +1271,10 @@ def main() -> int:
         say(f"phase 1: built {lib.path.name} (nvcc {lib.build_seconds:.2f} s); "
             f"ptxas: {' | '.join(ptxas) or 'reused'}")
     say(f"phase 1: all {len(built)} sources built in {build_s:.2f} s")
+    occ = occupancy(built["dfire_pairs"].lib)
+    say("phase 1: DFIRE kernels: " + "; ".join(
+        f"{k} {regs} registers, {warps} resident warps an SM"
+        for k, (regs, warps) in occ.items()))
 
     counters = (dp.dfire_pairs, dp.dfire_pairs_worklist, ev.elec_vdw_pairs,
                 k4.dfire_pairs_v1, k5.elec_vdw_pairs_v1)
@@ -1204,9 +1285,13 @@ def main() -> int:
     dfire = KernelPath("1ppe DFIRE", standin.toy_system(*DFIRE_ATOMS, N_POSES))
     check(dfire.kernel is dp.dfire_pairs, "the 1ppe path did not choose K1")
     k1_err, k1_main = kernel_cases(dfire, 2, gen, rng)
+    k1_edge_err, k2_edge_err = edge_cases(2)
+    k1_err = max(k1_err, k1_edge_err)
     k1_launches, step1 = drive(dfire, counters, 3)
     oracle(dfire, step1, 3)
     k1_ms, k1_plain_ms = timing(dfire, k1_main, card, (4, 5))
+    occupancy_report(4, card, f"1ppe DFIRE, K1 at G={N_POSES}", dp.dfire_pairs, k1_main,
+                     occ)
 
     # -- 6-8. the DNA + ANM path and K3 --------------------------------------
     rigid = KernelPath("1azp DNA rigid", standin.toy_system(*DNA_ATOMS, N_POSES,
@@ -1235,7 +1320,7 @@ def main() -> int:
     k4c = KernelPath("1k4c DFIRE membrane", (*standin.membrane_system(N_POSES), 0))
     check(k4c.kernel is dp.dfire_pairs_worklist, "the 1k4c path did not choose K2")
     k2_err, k2_main = kernel_cases(k4c, 10, gen, rng)
-    k2_err = max(k2_err, worklist_checks(k4c, anm, gen, k2_main, 10))
+    k2_err = max(k2_err, k2_edge_err, worklist_checks(k4c, anm, gen, k2_main, 10))
 
     # -- 11. the 1k4c-shaped DFIRE membrane path -----------------------------
     active_share(k4c, 11)
@@ -1246,6 +1331,8 @@ def main() -> int:
     k2_ms, k1_same_ms = worklist_timing(k4c, k2_main, card, 12)
     k1_pp_ms = cuda_ms(lambda: dp.dfire_pairs(*anm_main[0], **anm_main[1]), 200)
     _, k2_plain_ms = timing(k4c, k2_main, card, (12, 12), plain_reps=2)
+    occupancy_report(12, card, f"1k4c DFIRE membrane, K2 at G={N_POSES}",
+                     dp.dfire_pairs_worklist, k2_main, occ)
     # -- 13-14. the 1ppe v1 DFIRE path and K4 ---------------------------------
     dfire_v1 = KernelPath("1ppe DFIRE v1", standin.toy_system(
         *DFIRE_ATOMS, N_POSES, dfire_mode="steps"), energy_mode="kernel_v1")
@@ -1270,7 +1357,7 @@ def main() -> int:
     k5_ms, k5_plain_ms = timing(dna_v1, k5_main, card, (15, 15))
 
     # -- 16-17. the farm -------------------------------------------------------
-    err, err_v1, _ = farm_phases(card, counters)
+    err, err_v1, _ = farm_phases(card, counters, occ)
     k1_err, k4_err = max(k1_err, err), max(k4_err, err_v1)
 
     # -- 18. the table-selection probes P1-P6 ------------------------------------

@@ -238,7 +238,8 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 def torch_params(params: BatchScoringParams, device,
                  dtype: torch.dtype) -> BatchScoringParams:
-    """Copy ``params`` with every array field as a tensor on ``device``."""
+    """Copy ``params`` with every array field as a contiguous tensor on
+    ``device`` (a kernel reads it as laid out, with no copy a call)."""
     if dtype not in _NP_DTYPE:
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
     np_dtype = _NP_DTYPE[dtype]
@@ -251,7 +252,7 @@ def torch_params(params: BatchScoringParams, device,
             x = x.astype(np_dtype)
         else:
             x = x.astype(np.int64)
-        return torch.as_tensor(x, device=device)
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
     return dataclasses.replace(
         params, **{name: conv(getattr(params, name)) for name in _ARRAY_FIELDS})

@@ -49,13 +49,16 @@ def cuda_device(device, who: str) -> torch.device:
 
 
 def make_energy(params: BatchScoringParams, energy_mode: str, device,
-                dtype: torch.dtype, energy_chunk: int = 0, dq_bf16: bool = False):
+                dtype: torch.dtype, energy_chunk: int = 0, dq_bf16: bool = False,
+                cull: bool = True):
     """(tensor params, energy_fn) of an energy mode (see the module
     docstring).  ``energy_chunk`` > 0 caps the poses of one call: dense
     chunks, or kernel calls through ``pose_chunked_energy``; 0 scores every
     pose at once.  ``dq_bf16`` stores the DFIRE step tables in bfloat16
     where the mode reads them ('kernel_v1', 'dense' with step-form params);
-    each value is upcast before it is added."""
+    each value is upcast before it is added.  ``cull`` False gives the
+    kernel modes every tile of every pose (``make_kernel_energy_fn``); the
+    dense mode has no cull and ignores it, as JAX's 'xla' mode does."""
     if energy_mode not in ENERGY_MODES:
         raise ValueError(f"energy_mode must be one of {ENERGY_MODES}, got "
                          f"{energy_mode!r}")
@@ -64,7 +67,8 @@ def make_energy(params: BatchScoringParams, energy_mode: str, device,
     else:
         kernel = "v1" if energy_mode == "kernel_v1" else "v2"
         params = kernel_params(params, kernel)
-        energy_fn = make_kernel_energy_fn(params, device, dtype, kernel=kernel)
+        energy_fn = make_kernel_energy_fn(params, device, dtype, cull=cull,
+                                          kernel=kernel)
         if energy_chunk > 0:
             energy_fn = pose_chunked_energy(energy_fn, energy_chunk)
     tparams = torch_params(params, device, dtype)
@@ -84,10 +88,10 @@ class GsoTorchRunner:
                  output_directory: Optional[str] = None,
                  dtype: torch.dtype = torch.float32, device="cuda",
                  energy_mode: str = "kernel", energy_chunk: int = 0,
-                 dq_bf16: bool = False):
+                 dq_bf16: bool = False, cull: bool = True):
         device = cuda_device(device, "GsoTorchRunner")
         self.params, self.energy_fn = make_energy(
-            params, energy_mode, device, dtype, energy_chunk, dq_bf16)
+            params, energy_mode, device, dtype, energy_chunk, dq_bf16, cull)
         self.device = device
         self.state = init_state(positions, use_anm, anm_rec, anm_lig,
                                 dtype=dtype, device=device)

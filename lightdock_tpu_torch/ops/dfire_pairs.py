@@ -37,6 +37,11 @@ pose sharing an active chunk may take a far bin, as in the JAX kernel; the
 moved gate discards its score.  The plain versions honour the bits the
 same way.
 
+The bin of d2 is the count of thresholds after the first that are <= d2.
+The kernels take it from the pair's 0.5 A distance slot (:func:`slot_bins`),
+which gives the same bin only where every live threshold is 0 or a slot
+edge: the wrappers raise on any other, on the CPU as on the card.
+
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  There is no fallback.
 """
@@ -44,6 +49,8 @@ launches its kernel or raises.  There is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -55,21 +62,26 @@ from .tiling import dfire_far_split, dfire_live_channels
 
 POSE_BLOCK = 16     # poses per chunk (the kernel's kPoses)
 MAX_CHANNELS = 32   # bins per table row (one 128-byte line in f32)
-MAX_R_TILE = 128
+MAX_R_TILE = 32     # receptor rows a tile (one bit of the kernel's row mask each)
 IFACE2 = ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2   # d <= 3.9 on 2*sqrt(d2)-1
 
 
 class DfireTables(NamedTuple):
     """Per-complex tables of the kernel, built once on the device.
 
-    ``cum[i, tb, k]`` is the cumulative DFIRE potential of receptor atom i
-    against ligand type tb at live bin k: the prefix sum of the live
-    delta channels in ascending order, the addition order of the TPU
-    kernel's ``dq_scr``, so the values are bit-identical to it.  Column
-    ``tb == T`` is zero and serves untyped (padding) ligand atoms.
+    ``cum[rec_type[i], tb, k]`` is the cumulative DFIRE potential of
+    receptor atom i against ligand type tb at live bin k: the prefix sum of
+    the live delta channels in ascending order, the addition order of the
+    TPU kernel's ``dq_scr``, so the values are bit-identical to it.  The
+    table has one row a receptor row class (atoms whose delta rows are
+    equal, which is each DFIRE type present), not one a receptor atom, so
+    it stays a few MB at any receptor size.  Row ``n_classes`` is zero and
+    serves padding receptor atoms; column ``tb == T`` is zero and serves
+    untyped (padding) ligand atoms.
     """
 
-    cum: torch.Tensor         # (Nr_pad, T + 1, MAX_CHANNELS)
+    cum: torch.Tensor         # (n_classes + 1, T + 1, MAX_CHANNELS)
+    rec_type: torch.Tensor    # (Nr_pad,) int32, the row of each receptor atom
     lig_type: torch.Tensor    # (Nl_pad,) int32
     thresholds: tuple         # live squared-distance thresholds, ascending
     split: Optional[int]      # far/near boundary (live index) or None
@@ -79,7 +91,8 @@ def dfire_tables(rec_half: torch.Tensor, lig_onehot: torch.Tensor,
                  thresholds, r_tile: int, l_tile: int) -> DfireTables:
     """Build :class:`DfireTables` from the type-factored tables
     ``rec_half`` (K, Nr, T) and ``lig_onehot`` (T, Nl) of
-    ``engine.params.dfire_type_tables``, padded to whole tiles."""
+    ``engine.params.dfire_type_tables``, padded to whole tiles.  The
+    receptor's row classes are the distinct rows ``rec_half[:, i, :]``."""
     thresholds = tuple(float(x) for x in thresholds)
     live = dfire_live_channels(thresholds)
     if len(live) > MAX_CHANNELS:
@@ -90,19 +103,42 @@ def dfire_tables(rec_half: torch.Tensor, lig_onehot: torch.Tensor,
     nl = lig_onehot.shape[1]
     nr_pad = -(-nr // r_tile) * r_tile
     nl_pad = -(-nl // l_tile) * l_tile
-    cum = torch.zeros((nr_pad, n_types + 1, MAX_CHANNELS),
+    classes, rec_class = torch.unique(rec_half.permute(1, 0, 2).reshape(nr, -1),
+                                      dim=0, return_inverse=True)
+    n_cls = classes.shape[0]
+    classes = classes.reshape(n_cls, k, n_types)
+    cum = torch.zeros((n_cls + 1, n_types + 1, MAX_CHANNELS),
                       dtype=rec_half.dtype, device=rec_half.device)
-    acc = rec_half[live[0]]
-    cum[:nr, :n_types, 0] = acc
+    acc = classes[:, live[0]]
+    cum[:n_cls, :n_types, 0] = acc
     for i in range(1, len(live)):
-        acc = acc + rec_half[live[i]]
-        cum[:nr, :n_types, i] = acc
+        acc = acc + classes[:, live[i]]
+        cum[:n_cls, :n_types, i] = acc
+    rec_type = F.pad(rec_class, (0, nr_pad - nr), value=n_cls).to(torch.int32)
     typed = lig_onehot.sum(dim=0) > 0
     types = torch.where(typed, lig_onehot.argmax(dim=0),
                         torch.full_like(typed, n_types, dtype=torch.int64))
     lig_type = F.pad(types, (0, nl_pad - nl), value=n_types).to(torch.int32)
-    return DfireTables(cum, lig_type,
+    return DfireTables(cum, rec_type, lig_type,
                        tuple(thresholds[c] for c in live), split)
+
+
+@functools.lru_cache(maxsize=None)
+def slot_bins(thresholds: tuple) -> tuple:
+    """The kernels' bin of each 0.5 A distance slot: entry ``m + 1`` is the
+    bin (the count of thresholds after the first that are <= the slot's
+    lower edge ((m + 1) / 2)^2) of slot m = -1 .. 29, the slots of
+    d2 <= 225.  The kernels take a pair's slot from its distance and the
+    bin from this table, which equals the threshold count at every d2 only
+    where each threshold sits on a slot edge: anything else raises."""
+    for t in thresholds[1:]:
+        s = round(2.0 * math.sqrt(t)) if t > 0 else 0
+        if t != 0 and (s / 2.0) ** 2 != t:
+            raise ValueError(f"DFIRE threshold {t!r} is not 0 or a 0.5 A slot "
+                             "edge ((m + 1) / 2)^2; the kernels bin by slot")
+    n_slots = int(2.0 * math.sqrt(C.DFIRE_DIST_CUTOFF2)) + 1
+    return tuple(sum(t <= (s / 2.0) ** 2 for t in thresholds[1:])
+                 for s in range(n_slots))
 
 
 def pad_inputs(rec_all, lig_all, iface_active, r_tile, l_tile):
@@ -148,11 +184,12 @@ def _padded(rec_all, lig_all, tables, active_chunks, iface_active,
                          f"(1, Nr, 3) nor per pose ({g}, Nr, 3)")
     rec, lig, iface = pad_inputs(rec_all, lig_all, iface_active, r_tile, l_tile)
     gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
-    if tables.cum.shape[0] != nr_pad or tables.lig_type.shape[0] != nl_pad:
-        raise ValueError("tables were built for other tiles: cum "
-                         f"{tuple(tables.cum.shape)}, lig_type "
+    if tables.rec_type.shape[0] != nr_pad or tables.lig_type.shape[0] != nl_pad:
+        raise ValueError("tables were built for other tiles: rec_type "
+                         f"{tuple(tables.rec_type.shape)}, lig_type "
                          f"{tuple(tables.lig_type.shape)}; atoms pad to "
                          f"({nr_pad}, {nl_pad})")
+    slot_bins(tables.thresholds)   # raises on thresholds off the slot grid
     check_bits(active_chunks, near_chunks, iface, nr_pad // r_tile,
                nl_pad // l_tile, gp)
     if tables.split is None and near_chunks is not None:
@@ -181,7 +218,7 @@ def _plain(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
     n_r, n_l = nr_pad // r_tile, nl_pad // l_tile
     dev, dtype = lig.device, lig.dtype
     t1, kp = tables.cum.shape[1], tables.cum.shape[2]
-    base = ((torch.arange(nr_pad, device=dev)[:, None] * t1
+    base = ((tables.rec_type.to(torch.int64)[:, None] * t1
              + tables.lig_type.to(torch.int64)[None, :]) * kp)   # (Nr, Nl)
     cum = tables.cum.reshape(-1)
     thr = tables.thresholds
@@ -257,7 +294,7 @@ def _bind(lib, name, n_ptrs):
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8
-                   + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                   + [ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_float,
                       ctypes.c_void_p])
     return fn
@@ -266,20 +303,20 @@ def _bind(lib, name, n_ptrs):
 def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
             l_tile, need_iface, near_chunks, use_worklist):
     g = lig_all.shape[0]
-    if r_tile > MAX_R_TILE or l_tile > 256 or 256 % l_tile:
+    if r_tile > MAX_R_TILE or l_tile % POSE_BLOCK:
         raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): r_tile <= "
-                         f"{MAX_R_TILE} and l_tile dividing 256")
+                         f"{MAX_R_TILE} and l_tile a multiple of {POSE_BLOCK}")
     for name, x in (("rec_all", rec_all), ("lig_all", lig_all),
                     ("cum", tables.cum)):
         if x.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32; {name} is {x.dtype}")
-    tensors = [rec_all, lig_all, tables.cum, tables.lig_type, active_chunks,
-               iface_active] + ([near_chunks] if near_chunks is not None else [])
+    tensors = [rec_all, lig_all, tables.cum, tables.rec_type, tables.lig_type,
+               active_chunks, iface_active] + ([near_chunks] if near_chunks is not None else [])
     dev = lig_all.device
     for x in tensors:
         if x.device != dev:
             raise ValueError(f"all inputs must be on {dev}; one is on {x.device}")
-    for x in (tables.lig_type, active_chunks, iface_active, near_chunks):
+    for x in (tables.rec_type, tables.lig_type, active_chunks, iface_active, near_chunks):
         if x is not None and x.dtype != torch.int32:
             raise TypeError(f"index and bit tensors must be int32, got {x.dtype}")
     rec, lig, iface = _padded(rec_all, lig_all, tables, active_chunks,
@@ -287,7 +324,8 @@ def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
     rec, lig, iface = rec.contiguous(), lig.contiguous(), iface.contiguous()
     act = active_chunks.contiguous()
     near = near_chunks.contiguous() if near_chunks is not None else None
-    cum, lig_type = tables.cum.contiguous(), tables.lig_type.contiguous()
+    cum, rec_type = tables.cum.contiguous(), tables.rec_type.contiguous()
+    lig_type = tables.lig_type.contiguous()
     gp, nr_pad, nl_pad = lig.shape[0], rec.shape[1], lig.shape[2]
     n_tiles = (nr_pad // r_tile) * (nl_pad // l_tile)
 
@@ -298,7 +336,8 @@ def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
         ifl = torch.zeros((gp, nl_pad), dtype=torch.float32, device=dev)
     else:
         ifr = ifl = None
-    thr = (ctypes.c_float * len(tables.thresholds))(*tables.thresholds)
+    bins = slot_bins(tables.thresholds)
+    slots = (ctypes.c_int32 * len(bins))(*bins)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -307,17 +346,17 @@ def _launch(rec_all, lig_all, tables, active_chunks, iface_active, r_tile,
     if use_worklist:
         tiles = torch.empty(n_tiles, dtype=torch.int32, device=dev)
         n_active = torch.empty(1, dtype=torch.int32, device=dev)
-        fn = _bind(lib, "dfire_pairs_worklist_launch", 13)
+        fn = _bind(lib, "dfire_pairs_worklist_launch", 14)
         lists = (ptr(tiles), ptr(n_active))
     else:
-        fn = _bind(lib, "dfire_pairs_launch", 11)
+        fn = _bind(lib, "dfire_pairs_launch", 12)
         lists = ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(rec), ptr(lig), ptr(cum), ptr(lig_type), ptr(act),
-                 ptr(iface), ptr(near), *lists, ptr(partial), ptr(raw),
-                 ptr(ifr), ptr(ifl), nr_pad, nl_pad, gp, rec.shape[0], r_tile,
-                 l_tile, cum.shape[1], cum.shape[2], thr,
+        err = fn(ptr(rec), ptr(lig), ptr(cum), ptr(rec_type), ptr(lig_type),
+                 ptr(act), ptr(iface), ptr(near), *lists, ptr(partial),
+                 ptr(raw), ptr(ifr), ptr(ifl), nr_pad, nl_pad, gp, rec.shape[0],
+                 r_tile, l_tile, cum.shape[1], cum.shape[2], slots, len(bins),
                  len(tables.thresholds), tables.split or 0,
                  C.DFIRE_DIST_CUTOFF2, IFACE2, stream)
     name = "dfire_pairs_worklist" if use_worklist else "dfire_pairs"

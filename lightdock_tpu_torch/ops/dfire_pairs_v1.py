@@ -146,7 +146,10 @@ def _launch(rec_all, lig_all, dq, thresholds, active, iface_active, r_tile,
     for x in (rec_all, dq, active, iface_active):
         if x.device != dev:
             raise ValueError(f"all inputs must be on {dev}; one is on {x.device}")
-    rec, lig, dq = rec_all.contiguous(), lig_all.contiguous(), dq.contiguous()
+    if not dq.is_contiguous():   # 30 MB at 1ppe: no copy a call
+        raise ValueError("the step tables dq must be contiguous (engine.params."
+                         "torch_params uploads them so)")
+    rec, lig = rec_all.contiguous(), lig_all.contiguous()
     act, iface = active.contiguous(), iface_active.contiguous()
     g, _, nl = lig.shape
     nr = rec.shape[1]

@@ -44,9 +44,10 @@ import torch.nn.functional as F
 
 from .. import constants as C
 from . import _build
-from .dfire_pairs import MAX_R_TILE, POSE_BLOCK, check_bits, pad_inputs
+from .dfire_pairs import POSE_BLOCK, check_bits, pad_inputs
 
 ELEC_SCALE = C.FACTOR / C.EPSILON
+MAX_R_TILE = 128   # receptor rows a tile (the kernel's kMaxRTile)
 
 
 def _pad_atoms(ele_rec, ele_lig, vdw_c_rec, vdw_c_lig, vdw_r_rec, vdw_r_lig,

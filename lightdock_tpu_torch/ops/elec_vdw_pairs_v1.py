@@ -43,8 +43,8 @@ import torch.nn.functional as F
 
 from .. import constants as C
 from . import _build
-from .dfire_pairs import MAX_R_TILE, pad_inputs
-from .elec_vdw_pairs import ELEC_SCALE, _pad_atoms
+from .dfire_pairs import pad_inputs
+from .elec_vdw_pairs import ELEC_SCALE, MAX_R_TILE, _pad_atoms
 from .tiling import check_pose_bits, expand_pose_bits, tile_sums
 
 PLAIN_POSES = 16   # poses per step of the plain version's loop

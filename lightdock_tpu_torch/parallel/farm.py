@@ -39,7 +39,8 @@ class SwarmFarmRunner:
     segments of steps, per-swarm snapshots with full-precision sidecars,
     resume.  Every energy mode of ``engine.runner.GsoTorchRunner`` is
     supported ('auto' is 'kernel'); ``energy_chunk`` > 0 caps the poses of
-    one energy call, 0 scores all S x G at once."""
+    one energy call, 0 scores all S x G at once; ``cull`` False turns the
+    kernel modes' box cull off (``engine.runner.make_energy``)."""
 
     def __init__(self, params: BatchScoringParams,
                  positions_list: Sequence[np.ndarray],
@@ -47,7 +48,7 @@ class SwarmFarmRunner:
                  use_anm: bool, anm_rec: int, anm_lig: int,
                  dtype: torch.dtype = torch.float32, output_root=".",
                  energy_mode: str = "auto", energy_chunk: int = 0,
-                 device="cuda", dq_bf16: bool = False):
+                 device="cuda", dq_bf16: bool = False, cull: bool = True):
         if len(positions_list) != len(swarm_ids):
             raise ValueError(f"{len(positions_list)} swarms for "
                              f"{len(swarm_ids)} swarm ids")
@@ -59,7 +60,7 @@ class SwarmFarmRunner:
         self.seed = seed
         self.dtype = dtype
         self.params, self.energy_fn = make_energy(
-            params, energy_mode, self.device, dtype, energy_chunk, dq_bf16)
+            params, energy_mode, self.device, dtype, energy_chunk, dq_bf16, cull)
         self.states = stack_swarm_states(positions_list, use_anm, anm_rec,
                                          anm_lig, dtype, self.device)
         self._initial_states = self.states

@@ -11,13 +11,21 @@ atoms of the right counts with the deterministic synthetic DFIRE table.
 * :func:`membrane_system` is the 1k4c-shaped DFIRE membrane complex: a slab
   of receptor atoms flagged as membrane beads and one swarm's poses next
   to the receptor's surface, so that part of the tile grid is culled.
+* :func:`bin_edge_case` is no complex but the DFIRE pair kernels' inputs
+  with every atom pair on a bin edge or a few ulps beside it.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
 
-from .engine.params import build_batch_params
+import numpy as np
+import torch
+
+from . import constants as C
+from .engine.params import build_batch_params, dfire_bin_thresholds
+from .ops import dfire_pairs as dp
+from .scoring import tables
 from .scoring.models import DockingModel
 from .scoring.potentials import synthetic_potential
 
@@ -94,3 +102,78 @@ def membrane_system(g, n_rec=K4C_ATOMS[0], n_lig=K4C_ATOMS[1], seed=0):
     q = rng.standard_normal((g, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     return params, np.concatenate([t, q], axis=1)
+
+
+class BinEdgeCase(NamedTuple):
+    args: tuple          # (rec_all, lig_all, DfireTables, active_chunks, iface_active)
+    kwargs: dict         # r_tile, l_tile, need_iface, near_chunks
+    d2: np.ndarray       # (G,) float32: the squared distance of pose g's pairs
+    rec_half: torch.Tensor    # (K, Nr, T) the tables are built from
+    lig_onehot: torch.Tensor  # (T, Nl)
+
+
+def edge_d2(ulps: int = 1) -> np.ndarray:
+    """float32 squared distances on and within ``ulps`` ulps either side of
+    every 0.5 A slot edge ((m + 1) / 2)^2 up to the 225 cutoff (which
+    includes every live DFIRE threshold) and of the interface cutoff
+    2.45^2, and 0."""
+    edges = [np.float32((s / 2.0) ** 2) for s in range(1, 31)] + [np.float32(dp.IFACE2)]
+    bits = np.array(edges, dtype=np.float32).view(np.int32)
+    near = bits[:, None] + np.arange(-ulps, ulps + 1, dtype=np.int32)[None, :]
+    return np.concatenate([np.float32([0.0]), near.reshape(-1).view(np.float32)])
+
+
+def _offset_at(target):
+    """(x, y) float32 with ((x * x) + (y * y)) + 0 == target in float32,
+    the kernels' d2 of a pair (x, y, 0) apart."""
+    zero = np.float32(0.0)
+    if target == 0:
+        return zero, zero
+    x = np.float32(np.sqrt(np.float64(target) * 0.999))
+    xx = x * x
+    y = np.float32(np.sqrt(np.float64(target) - np.float64(xx)))
+    for _ in range(10000):
+        d2 = (xx + y * y) + zero * zero
+        if d2 == target:
+            return x, y
+        y = np.nextafter(y, np.float32(np.inf) if d2 < target else zero)
+    raise RuntimeError(f"no float32 pair offset gives d2 = {target!r}")
+
+
+def bin_edge_case(device="cpu", per_pose: bool = False, n_lig: int = 4,
+                  ulps: int = 1) -> BinEdgeCase:
+    """Inputs of the DFIRE pair kernels (``ops.dfire_pairs``; 32 x 128
+    tiles) whose pairs sit on the bin edges: pose g puts its ``n_lig``
+    ligand atoms (types 0 .. n_lig - 1) at squared distance
+    ``edge_d2(ulps)[g]``
+    from one receptor atom (row 5, or per pose row 7g mod 32 of a (G, Nr,
+    3) receptor); every other pair is hundreds of A apart.  The table's
+    entry for bin k is (k + 1) times a per-pair factor in [1, 1.75], so a
+    pair binned one off moves its pose's sum by at least 1.  Every chunk
+    and interface bit is set; no near bits."""
+    d2 = edge_d2(ulps)
+    g, nr = d2.shape[0], 32
+    thresholds = dfire_bin_thresholds(tables.dfire_tables()["dist_to_bins"])
+    thresholds = tuple(float(t) for t in thresholds if t <= C.DFIRE_DIST_CUTOFF2)
+    far = np.stack([1000.0 * (np.arange(nr) + 1), np.zeros(nr), np.zeros(nr)], axis=1)
+    rows = (7 * np.arange(g)) % nr if per_pose else np.full(g, 5)
+    rec = np.repeat(far[None], g if per_pose else 1, axis=0).astype(np.float32)
+    rec[np.arange(rec.shape[0]), rows[:rec.shape[0]]] = 0.0
+    lig = np.zeros((g, 3, n_lig), dtype=np.float32)
+    for i, target in enumerate(d2):
+        x, y = _offset_at(target)
+        for j in range(n_lig):   # (x, y, 0) with its axes turned: the same d2
+            lig[i, (np.arange(3) + j) % 3, j] = (x, y, 0.0)
+    k, t = len(thresholds), n_lig
+    factor = 1.0 + 0.25 * ((np.arange(nr)[:, None] + np.arange(t)[None, :]) % 4)
+    rec_half = torch.as_tensor(np.broadcast_to(factor, (k, nr, t)).astype(np.float32),
+                               device=device)
+    lig_onehot = torch.eye(t, n_lig, dtype=torch.float32, device=device)
+    tab = dp.dfire_tables(rec_half, lig_onehot, thresholds, 32, 128)
+    n_chunks = -(-g // dp.POSE_BLOCK)
+    act = torch.ones((1, 1, n_chunks), dtype=torch.int32, device=device)
+    iface = torch.ones((1, 1, g), dtype=torch.int32, device=device)
+    args = (torch.as_tensor(rec, device=device), torch.as_tensor(lig, device=device),
+            tab, act, iface)
+    kwargs = dict(r_tile=32, l_tile=128, need_iface=True, near_chunks=None)
+    return BinEdgeCase(args, kwargs, d2, rec_half, lig_onehot)

@@ -23,6 +23,7 @@ from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs_v1 as k5  # noqa: E402
 from lightdock_tpu_torch.ops import probes as ops_probes  # noqa: E402
+from lightdock_tpu_torch import standin  # noqa: E402
 from lightdock_tpu_torch.standin import toy_system  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -346,3 +347,23 @@ def test_bare_gather_clips_on_card(cuda):
     idx = torch.randint(-40, 72, (32, 256), dtype=torch.int32, device=cuda)
     out = ops_probes.gather_form("bare", tab=tab, idx=idx)
     assert torch.equal(out, ops_probes.gather_form_plain("bare", tab=tab, idx=idx))
+
+
+@pytest.mark.parametrize("kernel", ["dfire_pairs", "dfire_pairs_worklist"])
+@pytest.mark.parametrize("per_pose", [False, True])
+def test_dfire_kernels_at_bin_edges(cuda, kernel, per_pose):
+    """Pairs on every 0.5 A slot edge and within 64 ulps either side, the
+    interface cutoff's too (``standin.bin_edge_case``, where a pair binned
+    one off moves its pose's sum by at least 1; the band the CPU model of
+    the slot covers): K1 and K2, rigid and per-pose receptor, equal their
+    plain versions at 5e-5 with equal flags."""
+    case = standin.bin_edge_case(cuda, per_pose=per_pose, ulps=64)
+    fn, plain = getattr(dp, kernel), getattr(dp, kernel + "_plain")
+    before = fn.launches
+    out = fn(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(*case.args, **case.kwargs)
+    torch.testing.assert_close(out[0], ref[0], rtol=5e-5, atol=5e-5)
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+    assert out[1].sum() > 0 and out[2].sum() > 0

@@ -161,8 +161,9 @@ def test_plain_kernel_matches_pallas(g, with_near):
 
 
 def test_dfire_tables_are_the_cumulative_potential():
-    """cum[i, type_j, k] rebuilds the step tables' cumulative sum exactly,
-    and padded ligand atoms read a zero column."""
+    """cum[rec_type_i, type_j, k] rebuilds the step tables' cumulative sum
+    exactly, and padded receptor and ligand atoms read a zero row and a
+    zero column."""
     params, _ = _system()
     params = ensure_dfire_types(params)
     tp = torch_params(from_reference(params), "cpu", torch.float32)
@@ -172,11 +173,14 @@ def test_dfire_tables_are_the_cumulative_potential():
     k = len(tables.thresholds)
     cum_dq = np.cumsum(params.dfire_dq.astype(np.float32), axis=0,
                        dtype=np.float32)                      # (K, Nr, Nl)
+    rt = tables.rec_type.numpy().astype(np.int64)
     lt = tables.lig_type.numpy().astype(np.int64)
-    got = tables.cum.numpy()[:nr][:, lt[:nl], :k]            # (Nr, Nl, K)
+    got = tables.cum.numpy()[rt[:nr]][:, lt[:nl], :k]        # (Nr, Nl, K)
     np.testing.assert_array_equal(got.transpose(2, 0, 1), cum_dq)
+    assert (rt[nr:] == tables.cum.shape[0] - 1).all()
     assert (lt[nl:] == tables.cum.shape[1] - 1).all()
-    assert not tables.cum[:, -1].any() and not tables.cum[nr:].any()
+    assert not tables.cum[:, -1].any() and not tables.cum[-1].any()
+    assert tables.cum.shape[0] <= 170   # one row a receptor type, not an atom
 
 
 def _both_fns(params, cull=True):

@@ -181,3 +181,29 @@ def test_run_swarm_farm_entry(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         SwarmFarmRunner(from_reference(params), positions_list, [0, 1], seed=1, **ANM)
+
+
+def test_farm_cull_off_matches_cull_on_and_jax(tmp_path):
+    """f64, a 2-swarm farm in the kernel mode: ``cull=False`` reaches the
+    energy function (a pose 100 A out keeps every tile bit) and writes
+    gso_1.out and gso_10.out of every swarm text-identical to
+    ``cull=True`` and to the JAX farm's Pallas path with ``cull=False``."""
+    params, positions_list = _system(n_swarms=2)
+    ref = JaxFarm(params, positions_list, [0, 1], seed=324324, dtype=jnp.float64,
+                  output_root=str(tmp_path / "jax"), energy_mode="pallas",
+                  cull=False, interpret=True, **ANM)
+    ref.run_segmented(10, segment=10)
+    far = torch.tensor([[100.0, 0.0, 0.0]], dtype=torch.float64)
+    q = torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=torch.float64)
+    a = torch.zeros((1, NUM_ANM), dtype=torch.float64)
+    for cull in (True, False):
+        farm = _farm(params, positions_list, tmp_path / f"cull_{cull}", "kernel",
+                     cull=cull)
+        args, _ = farm.energy_fn.kernel_args(farm.params, far, q, a, a)
+        assert bool(args[3].all()) == (not cull)
+        farm.run_segmented(10, segment=10)
+    for i in (0, 1):
+        for step in (1, 10):
+            off = _text(tmp_path / "cull_False", i, step)
+            assert off == _text(tmp_path / "cull_True", i, step), (i, step)
+            assert off == _text(tmp_path / "jax", i, step), (i, step)

@@ -255,3 +255,33 @@ def test_runner_energy_modes(tmp_path):
     a, b = f32.run(1)[1].scoring, b16.run(1)[1].scoring
     assert not torch.equal(a, b)
     assert float(((b - a) / a).abs().max()) < 0.05
+
+
+def test_runner_cull_off_matches_cull_on_and_jax(tmp_path):
+    """f64 on CPU, DFIRE through the kernel path: ``cull=False`` reaches the
+    energy function (a pose 100 A out keeps every tile bit) and renders
+    gso_1.out and gso_10.out text-identical to ``cull=True`` and to
+    ``GsoJaxRunner(energy_mode='pallas', cull=False)`` in interpret mode."""
+    params, pos = _toy(18)
+    kw = dict(seed=324324, use_anm=False, anm_rec=0, anm_lig=0)
+    ref = GsoJaxRunner(params, pos, output_directory=str(tmp_path / "jax"),
+                       dtype=jnp.float64, energy_mode="pallas", cull=False,
+                       interpret=True, **kw)
+    ref.run(10)
+    texts = {}
+    for cull in (True, False):
+        port = GsoTorchRunner(from_reference(params), pos,
+                              output_directory=str(tmp_path / f"cull_{cull}"),
+                              dtype=torch.float64, device="cpu", cull=cull, **kw)
+        far = torch.tensor([[100.0, 0.0, 0.0]], dtype=torch.float64)
+        q = torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=torch.float64)
+        none = torch.zeros((1, 0), dtype=torch.float64)
+        args, _ = port.energy_fn.kernel_args(port.params, far, q, none, none)
+        assert bool(args[3].all()) == (not cull)
+        port.run(10)
+        texts[cull] = {s: (tmp_path / f"cull_{cull}" / f"gso_{s}.out").read_text()
+                       for s in (1, 10)}
+    for step in (1, 10):
+        jax_text = (tmp_path / "jax" / f"gso_{step}.out").read_text()
+        assert texts[False][step] == texts[True][step], f"gso_{step}.out differs"
+        assert texts[False][step] == jax_text, f"gso_{step}.out differs from JAX"

@@ -281,3 +281,21 @@ def test_resolve_kernel():
         k4.dfire_pairs_v1(torch.zeros(1, 8, 3, device="meta"),
                           torch.zeros(2, 3, 8, device="meta"), None, (), None,
                           None, r_tile=32, l_tile=128)
+
+
+def test_step_tables_upload_contiguous():
+    """The spatial sort leaves the (K, Nr, Nl) step tables a strided view;
+    ``torch_params`` uploads them contiguous, so K4 reads them as they lie,
+    and K4's launch refuses a strided table rather than copy it each call
+    (it raises before it builds or touches a card)."""
+    params, pose = _system("dfire", num_anm=0)
+    ours = kernel_params(from_reference(params), "v1")
+    assert not ours.dfire_dq.flags["C_CONTIGUOUS"]
+    tp = torch_params(ours, "cpu", torch.float32)
+    assert tp.dfire_dq.is_contiguous()
+    assert torch.equal(tp.dfire_dq, torch.as_tensor(ours.dfire_dq))
+    args, kwargs = _kernel_inputs("dfire", 0)
+    strided = args[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4._launch(args[0], args[1], strided, *args[3:], kwargs["r_tile"],
+                   kwargs["l_tile"], kwargs["need_iface"])
