@@ -47,7 +47,16 @@ from . import _build
 from .dfire_pairs import POSE_BLOCK, check_bits, pad_inputs
 
 ELEC_SCALE = C.FACTOR / C.EPSILON
-MAX_R_TILE = 128   # receptor rows a tile (the kernel's kMaxRTile)
+MAX_R_TILE = 32              # receptor rows a tile (the kernel's kEvMaxRTile)
+KERNEL_L_TILES = (32, 64, 128)   # ligand tiles the kernel takes
+
+
+def check_tile(r_tile, l_tile):
+    """Raises on a tile the kernels (K3 and K5) do not take: at most
+    ``MAX_R_TILE`` receptor rows and ``KERNEL_L_TILES`` ligand atoms."""
+    if not 0 < r_tile <= MAX_R_TILE or l_tile not in KERNEL_L_TILES:
+        raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): r_tile <= "
+                         f"{MAX_R_TILE} and l_tile in {KERNEL_L_TILES}")
 
 
 def _pad_atoms(ele_rec, ele_lig, vdw_c_rec, vdw_c_lig, vdw_r_rec, vdw_r_lig,
@@ -156,9 +165,7 @@ def _bind(lib):
 def _launch(rec_all, lig_all, atoms, active_chunks, iface_active, r_tile,
             l_tile, need_iface, near_chunks):
     g = lig_all.shape[0]
-    if r_tile > MAX_R_TILE or l_tile > 256 or 256 % l_tile:
-        raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): r_tile <= "
-                         f"{MAX_R_TILE} and l_tile dividing 256")
+    check_tile(r_tile, l_tile)
     dev = lig_all.device
     for x in (rec_all, lig_all) + tuple(atoms):
         if x.dtype != torch.float32:

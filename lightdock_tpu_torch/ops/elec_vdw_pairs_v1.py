@@ -44,7 +44,7 @@ import torch.nn.functional as F
 from .. import constants as C
 from . import _build
 from .dfire_pairs import pad_inputs
-from .elec_vdw_pairs import ELEC_SCALE, MAX_R_TILE, _pad_atoms
+from .elec_vdw_pairs import ELEC_SCALE, _pad_atoms, check_tile
 from .tiling import check_pose_bits, expand_pose_bits, tile_sums
 
 PLAIN_POSES = 16   # poses per step of the plain version's loop
@@ -125,9 +125,7 @@ def _bind(lib):
 def _launch(rec_all, lig_all, atoms, active, iface_active, r_tile, l_tile,
             need_iface):
     n_r, n_l = _check(rec_all, lig_all, atoms, active, iface_active, r_tile, l_tile)
-    if r_tile > MAX_R_TILE or l_tile > 256 or 256 % l_tile:
-        raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): r_tile <= "
-                         f"{MAX_R_TILE} and l_tile dividing 256")
+    check_tile(r_tile, l_tile)
     dev = lig_all.device
     for x in (rec_all, lig_all) + tuple(atoms):
         if x.dtype != torch.float32:

@@ -12,7 +12,9 @@ atoms of the right counts with the deterministic synthetic DFIRE table.
   of receptor atoms flagged as membrane beads and one swarm's poses next
   to the receptor's surface, so that part of the tile grid is culled.
 * :func:`bin_edge_case` is no complex but the DFIRE pair kernels' inputs
-  with every atom pair on a bin edge or a few ulps beside it.
+  with every atom pair on a bin edge or a few ulps beside it;
+  :func:`cutoff_edge_case` likewise for the elec/vdw kernels and their
+  interface, vdw and elec cutoffs.
 """
 
 from __future__ import annotations
@@ -117,10 +119,16 @@ def edge_d2(ulps: int = 1) -> np.ndarray:
     every 0.5 A slot edge ((m + 1) / 2)^2 up to the 225 cutoff (which
     includes every live DFIRE threshold) and of the interface cutoff
     2.45^2, and 0."""
-    edges = [np.float32((s / 2.0) ** 2) for s in range(1, 31)] + [np.float32(dp.IFACE2)]
-    bits = np.array(edges, dtype=np.float32).view(np.int32)
+    edges = [(s / 2.0) ** 2 for s in range(1, 31)] + [dp.IFACE2]
+    return np.concatenate([np.float32([0.0]), _ulps_around(edges, ulps)])
+
+
+def _ulps_around(values, ulps):
+    """Each of ``values`` as float32, and the float32 values within
+    ``ulps`` ulps either side of it."""
+    bits = np.array(values, dtype=np.float32).view(np.int32)
     near = bits[:, None] + np.arange(-ulps, ulps + 1, dtype=np.int32)[None, :]
-    return np.concatenate([np.float32([0.0]), near.reshape(-1).view(np.float32)])
+    return near.reshape(-1).view(np.float32)
 
 
 def _offset_at(target):
@@ -155,15 +163,7 @@ def bin_edge_case(device="cpu", per_pose: bool = False, n_lig: int = 4,
     g, nr = d2.shape[0], 32
     thresholds = dfire_bin_thresholds(tables.dfire_tables()["dist_to_bins"])
     thresholds = tuple(float(t) for t in thresholds if t <= C.DFIRE_DIST_CUTOFF2)
-    far = np.stack([1000.0 * (np.arange(nr) + 1), np.zeros(nr), np.zeros(nr)], axis=1)
-    rows = (7 * np.arange(g)) % nr if per_pose else np.full(g, 5)
-    rec = np.repeat(far[None], g if per_pose else 1, axis=0).astype(np.float32)
-    rec[np.arange(rec.shape[0]), rows[:rec.shape[0]]] = 0.0
-    lig = np.zeros((g, 3, n_lig), dtype=np.float32)
-    for i, target in enumerate(d2):
-        x, y = _offset_at(target)
-        for j in range(n_lig):   # (x, y, 0) with its axes turned: the same d2
-            lig[i, (np.arange(3) + j) % 3, j] = (x, y, 0.0)
+    rec, lig = _edge_geometry(d2, per_pose, n_lig, nr)
     k, t = len(thresholds), n_lig
     factor = 1.0 + 0.25 * ((np.arange(nr)[:, None] + np.arange(t)[None, :]) % 4)
     rec_half = torch.as_tensor(np.broadcast_to(factor, (k, nr, t)).astype(np.float32),
@@ -177,3 +177,66 @@ def bin_edge_case(device="cpu", per_pose: bool = False, n_lig: int = 4,
             tab, act, iface)
     kwargs = dict(r_tile=32, l_tile=128, need_iface=True, near_chunks=None)
     return BinEdgeCase(args, kwargs, d2, rec_half, lig_onehot)
+
+
+class CutoffEdgeCase(NamedTuple):
+    k3: tuple            # (args, kwargs) of ops.elec_vdw_pairs (chunk bits)
+    k5: tuple            # (args, kwargs) of ops.elec_vdw_pairs_v1 (per-pose bits)
+    d2: np.ndarray       # (G,) float32: the squared distance of pose g's pairs
+
+
+def _edge_geometry(d2, per_pose, n_lig, nr=32):
+    """(rec (1 | G, nr, 3), lig (G, 3, n_lig)) float32: pose g's ligand
+    atoms at squared distance ``d2[g]`` from one receptor atom (row 5, or
+    per pose row 7g mod 32), every other receptor atom 1000 A or more
+    away."""
+    g = d2.shape[0]
+    far = np.stack([1000.0 * (np.arange(nr) + 1), np.zeros(nr), np.zeros(nr)], axis=1)
+    rows = (7 * np.arange(g)) % nr if per_pose else np.full(g, 5)
+    rec = np.repeat(far[None], g if per_pose else 1, axis=0).astype(np.float32)
+    rec[np.arange(rec.shape[0]), rows[:rec.shape[0]]] = 0.0
+    lig = np.zeros((g, 3, n_lig), dtype=np.float32)
+    for i, target in enumerate(d2):
+        x, y = _offset_at(target)
+        for j in range(n_lig):   # (x, y, 0) with its axes turned: the same d2
+            lig[i, (np.arange(3) + j) % 3, j] = (x, y, 0.0)
+    return rec, lig
+
+
+def cutoff_edge_case(device="cpu", per_pose: bool = False, n_lig: int = 4,
+                     ulps: int = 1) -> CutoffEdgeCase:
+    """Inputs of the elec/vdw pair kernels K3 and K5 (``ops.elec_vdw_pairs``
+    and ``ops.elec_vdw_pairs_v1``; 32 x 128 tiles) whose pairs sit on the
+    cutoffs: pose g puts its ``n_lig`` ligand atoms at squared distance
+    ``d2[g]`` from one receptor atom (as in :func:`bin_edge_case`), d2
+    running over the interface (3.9^2), vdw (10^2) and elec (30^2) cutoffs
+    as float32 (the value the kernels and the plain versions compare with)
+    and ``ulps`` ulps either side of each; every other pair is 1000 A or
+    more apart.
+    Charges 0.1 on the receptor and 0.1 (1 + (j mod 4) / 4) on ligand atom
+    j, vdw energies 1 and radii 2.5, so a pair's term at the elec cutoff is
+    at least 9e-4 and at the vdw cutoff about -0.03: a mask one off moves
+    its pose's sum far beyond 5e-5, and a flag one off shows in the flags.
+    Every cull and interface bit is set; no near bits."""
+    d2 = _ulps_around([C.INTERFACE_CUTOFF2, C.VDW_DIST_CUTOFF2, C.ELEC_DIST_CUTOFF2], ulps)
+    g, nr = d2.shape[0], 32
+    rec, lig = _edge_geometry(d2, per_pose, n_lig, nr)
+
+    def vec(values):
+        return torch.as_tensor(np.asarray(values, dtype=np.float32), device=device)
+
+    atoms = (vec(np.full(nr, 0.1)), vec(0.1 * (1.0 + 0.25 * (np.arange(n_lig) % 4))),
+             vec(np.ones(nr)), vec(np.ones(n_lig)), vec(np.full(nr, 2.5)),
+             vec(np.full(n_lig, 2.5)))
+    coords = (torch.as_tensor(rec, device=device), torch.as_tensor(lig, device=device))
+    n_chunks = -(-g // dp.POSE_BLOCK)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.int32, device=device)
+
+    kwargs = dict(r_tile=32, l_tile=128, need_iface=True)
+    return CutoffEdgeCase(
+        (coords + atoms + (ones(1, 1, n_chunks), ones(1, 1, g)),
+         dict(kwargs, near_chunks=None)),
+        (coords + atoms + (ones(1, 1, g), ones(1, 1, g)), kwargs),
+        d2)

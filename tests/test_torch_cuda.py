@@ -367,3 +367,55 @@ def test_dfire_kernels_at_bin_edges(cuda, kernel, per_pose):
     torch.testing.assert_close(out[0], ref[0], rtol=5e-5, atol=5e-5)
     assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
     assert out[1].sum() > 0 and out[2].sum() > 0
+
+
+@pytest.mark.parametrize("kernel", ["elec_vdw_pairs", "elec_vdw_pairs_v1"])
+@pytest.mark.parametrize("per_pose", [False, True])
+def test_elec_vdw_kernels_at_cutoff_edges(cuda, kernel, per_pose):
+    """Pairs on the interface (3.9^2), vdw (10^2) and elec (30^2) cutoffs
+    and within 64 ulps either side (``standin.cutoff_edge_case``, where a
+    mask one off moves its pose's sum far beyond 5e-5): K3 and K5, rigid
+    and per-pose receptor, equal their plain versions at 5e-5, score
+    nothing exactly where plain scores nothing, and flag the same atoms."""
+    case = standin.cutoff_edge_case(cuda, per_pose=per_pose, ulps=64)
+    mod = ev if kernel == "elec_vdw_pairs" else k5
+    fn, plain = getattr(mod, kernel), getattr(mod, kernel + "_plain")
+    args, kwargs = case.k3 if mod is ev else case.k5
+    before = fn.launches
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(*args, **kwargs)
+    torch.testing.assert_close(out[0], ref[0], rtol=5e-5, atol=5e-5)
+    assert torch.equal(out[0] == 0, ref[0] == 0) and int((ref[0] == 0).sum()) == 64
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+    assert out[1].sum() > 0 and out[2].sum() > 0
+
+
+@pytest.mark.parametrize("r_tile,l_tile", [(16, 64), (32, 32)])
+@pytest.mark.parametrize("num_anm", [0, 2])
+def test_elec_vdw_kernels_other_tiles(cuda, r_tile, l_tile, num_anm):
+    """K3 and K5 on tiles other than the path's 32 x 128 (at most 32
+    receptor rows; 32, 64 or 128 ligand atoms), rigid and per-pose
+    receptor, against their plain versions with seeded bits; a ligand
+    tile of 256 atoms is refused."""
+    args, _ = _clustered_kernel_args(cuda, 37, method="dna", num_anm=num_anm)
+    g = args[1].shape[0]
+    rng = np.random.RandomState(5)
+
+    def bits(r, l, n):
+        shape = (-(-args[0].shape[1] // r), -(-args[1].shape[2] // l), n)
+        return torch.as_tensor((rng.rand(*shape) < 0.7).astype(np.int32), device=cuda)
+
+    n_c = -(-g // dp.POSE_BLOCK)
+    for mod, kernel, chunks in ((ev, ev.elec_vdw_pairs, n_c), (k5, k5.elec_vdw_pairs_v1, g)):
+        plain = getattr(mod, kernel.__name__ + "_plain")
+        a = args[:8] + (bits(r_tile, l_tile, chunks), bits(r_tile, l_tile, g))
+        out = kernel(*a, r_tile=r_tile, l_tile=l_tile)
+        ref = plain(*a, r_tile=r_tile, l_tile=l_tile)
+        torch.testing.assert_close(out[0], ref[0], rtol=5e-5, atol=5e-5)
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+        assert out[1].sum() > 0
+        wide = args[:8] + (bits(32, 256, chunks), bits(32, 256, g))
+        with pytest.raises(ValueError, match="unsupported tile"):
+            kernel(*wide, r_tile=32, l_tile=256)
