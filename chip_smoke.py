@@ -9,8 +9,9 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernel build times with ptxas' registers and spills, and
-   the registers and resident warps an SM of K1 and K2, and of K3 and K5
-   with their local (stack and spill) bytes a thread, rigid and per pose;
+   the registers and resident warps an SM of K1 and K2, and of K3, K4
+   and K5 with their local (stack and spill) bytes a thread, rigid and
+   per pose (K4 also with bfloat16 step tables);
 2. holds the DFIRE kernel (K1) against its plain PyTorch version on the
    card, at the DFIRE path's shapes (200 poses) and at 37 poses (pose
    padding), with and without the moved gate, and for poses clustered so
@@ -76,11 +77,20 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
     with and without the moved gate, clustered poses with culled
     tile-poses with and without interface flags, and the step tables in
     bfloat16; raw sums to 5e-5, flags exactly, two launches bit-equal;
+    then on pairs at every bin edge and within 64 ulps either side (the
+    step-table form of ``standin.bin_edge_case``), rigid and per pose:
+    sums and flags exactly equal;
 14. runs the 1ppe v1 DFIRE path, ``GsoTorchRunner(energy_mode=
     'kernel_v1')`` for 100 steps through ``run_segmented(100, 10)``: one
     K4 launch and no other kernel's a step, the snapshots, finite scores,
     the step-1 scores against the dense step-form oracle (5e-5); then
-    phases 4 and 5 for it and K4;
+    phases 4 and 5 for it and K4; then K4, rigid and per pose, at G = 200
+    and on a 6,400-pose batch (``toy_system(1615, 221, 6400,
+    dfire_mode="steps")``, a farm's step): the batch against plain (rtol
+    5e-5 with ``K4_BATCH_ATOL``, the floor its sums need printed; flags
+    exactly; two launches bit-equal), and at each the wrapper's ms, the
+    body's and the second pass's device ms, the bound, registers and
+    resident warps;
 15. holds the v1 elec/vdw kernel (K5) against its plain version at the
     1azp shapes with a rigid and a per-pose receptor (the cases of phase
     13 without bfloat16), on the coincident pair (NaN in both) and on the
@@ -118,7 +128,9 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
     equal to tourn, times the plain version and, where one PyTorch call
     computes the same function (``torch.gather``, ``torch.sqrt``, one add),
     that call; then prints P3's A/B line, v3gather's pairs/s against
-    v2chain's.
+    v2chain's, each variant's device time a call (torch.profiler), and
+    each variant that has a PyTorch call with its wrapper ms beside that
+    call's and its device time.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its f32 operations over
@@ -166,6 +178,11 @@ FARM_SWARMS, FARM_V1_SWARMS, FARM_SINGLE_STEPS = 32, 4, 10
 # f32 orders of the same ~56k pair terms part by a few ulps of the partial
 # sums (up to 3.2e-4 on the 200-pose cases).  1e-3 raw is 1.6e-5 of score.
 REORDER_ATOL = 1e-3
+# Absolute floor on K4's raw sums at the 6,400-pose batch of phase 14: the
+# floor they need beside rtol 5e-5 read 6.155e-5 rigid and 5.343e-5 per
+# pose on an H100 (PERF.md), from a few sums that nearly cancel; about
+# three times that.
+K4_BATCH_ATOL = 2e-4
 EV_BATCH = 6400                    # poses of the elec/vdw kernels' batch (32 x 200)
 # The band of float32 ulps around each DFIRE bin edge where phase 2 holds
 # K1 and K2 to plain (the band in which tests/test_torch_dfire_bins.py
@@ -677,6 +694,26 @@ def ev_occupancy(built):
     return out
 
 
+def k4_occupancy(built, n_k, r_tile):
+    """{kernel: (registers a thread, local (stack and spill) bytes a
+    thread, resident warps an SM)} of K4, rigid and per pose, float32 and
+    bfloat16 step tables, with the dynamic shared memory of ``n_k``
+    channels and ``r_tile`` rows, from ``dfire_pairs_v1_occupancy``
+    (``csrc/dfire_pairs_v1.cu``)."""
+    import ctypes
+
+    fn = built["dfire_pairs_v1"].lib.dfire_pairs_v1_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    out = {}
+    for which, suffix in enumerate(("", " per-pose", " bf16", " bf16 per-pose")):
+        blocks, regs, local, smem = (ctypes.c_int() for _ in range(4))
+        err = fn(which, n_k, r_tile, *(ctypes.byref(x) for x in (blocks, regs, local, smem)))
+        check(err == 0, f"dfire_pairs_v1_occupancy({which}): CUDA error {err}")
+        out["K4" + suffix] = (regs.value, local.value, blocks.value * 256 // 32)
+    return out
+
+
 def cutoff_edges(phase, kernel, plain, pose_bits):
     """K3 (or, with ``pose_bits``, K5), rigid and per-pose receptor,
     against plain on pairs at the interface, vdw and elec cutoffs and
@@ -702,52 +739,96 @@ def cutoff_edges(phase, kernel, plain, pose_bits):
     return err
 
 
-def ev_sizes(phase, card, name, kernel, plain, mains, occ):
-    """K3 or K5 (``name``) on each call of ``mains`` ({label: (args,
-    kwargs)}: rigid and per pose, G = 200 and ``EV_BATCH`` poses).  A call
-    of ``EV_BATCH`` poses is first held against plain (rtol and atol 5e-5,
-    flags exactly) and its two launches must be
+def kernel_sizes(phase, card, name, kernel, plain, mains, occ, body_name, bound_fn,
+                 batch_atol=ATOL):
+    """A pair kernel (``name``: K3, K4 or K5) on each call of ``mains``
+    ({label: (args, kwargs)}: rigid and per pose, G = 200 and ``EV_BATCH``
+    poses).  A call of ``EV_BATCH`` poses is first held against plain
+    (rtol 5e-5 and ``batch_atol``, flags exactly; the line prints the
+    absolute floor the sums need beside rtol) and its two launches must be
     bit-equal.  Then at each: the wrapper's ms a call (CUDA events), the
-    device ms of the body and of the second pass (torch.profiler, 10
-    calls), the bound, registers and resident warps.  Returns the max
-    error at ``EV_BATCH`` poses."""
+    device ms of the body ``body_name`` and of the second pass
+    (torch.profiler, 10 calls), the bound (``bound_fn(main, out)``),
+    registers and resident warps (``occ``).  Returns the max error at
+    ``EV_BATCH`` poses."""
     import types
 
     import torch
 
-    pose_bits = name == "K5"
-    body_name = "elec_vdw_pairs_v1_kernel" if pose_bits else "elec_vdw_pairs_kernel"
     err = 0.0
     for label, (args, kwargs) in mains.items():
         batch = args[1].shape[0] == EV_BATCH
         if batch:
-            path = types.SimpleNamespace(label=f"1azp DNA {label}")
-            # The floor these sums need beside rtol 5e-5, printed on the
-            # compare line, stayed 0 at 6,400 poses (PERF.md): the common atol.
-            err = max(err, compare(path, args, kwargs, phase, f"{name} batch", kernel, plain))
+            path = types.SimpleNamespace(label=f"{name} {label}")
+            err = max(err, compare(path, args, kwargs, phase, f"{name} batch", kernel, plain,
+                                   atol=batch_atol))
             again = kernel(*args, **kwargs)[0]
             check(torch.equal(again, kernel(*args, **kwargs)[0]),
                   f"{name} {label}: sums differ between runs")
         out = kernel(*args, **kwargs)
-        bnd = bound_v1((args, kwargs), out, FLOPS_EV_NEAR) if pose_bits else bound(
-            (args, kwargs), out, ev=True)
+        bnd = bound_fn((args, kwargs), out)
         ms = cuda_ms(lambda: kernel(*args, **kwargs), 20 if batch else 100)
-        _, dev, _ = device_profile(lambda: [kernel(*args, **kwargs) for _ in range(10)])
-        parts = {}
-        for part in (body_name, "sum_rows_kernel"):
-            us = [e.time_range.elapsed_us() for e in dev if part in e.name]
-            parts[part] = sum(us) / len(us) / 1e3 if us else None
+        parts = device_parts(lambda: kernel(*args, **kwargs), (body_name, "sum_rows_kernel"))
         regs, local, warps = occ[name + (" per-pose" if args[0].shape[0] > 1 else "")]
-
-        def fmt(x):
-            return "not measured (no device events)" if x is None else f"{x:.4f} ms"
-
         say(f"phase {phase}: [{card}] {name} {label}: {ms:.4f} ms a call through the "
-            f"wrapper, body {fmt(parts[body_name])}, second pass "
-            f"{fmt(parts['sum_rows_kernel'])} (torch.profiler, 10 calls), bound "
+            f"wrapper, body {fmt_ms(parts[body_name])}, second pass "
+            f"{fmt_ms(parts['sum_rows_kernel'])} (torch.profiler, 10 calls), bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}); {regs} registers, {local} B local, {warps} "
             f"resident warps an SM")
     return err
+
+
+def device_parts(fn, names, calls=10):
+    """{name: device ms a call of the events whose name holds ``name``, or
+    None} over ``calls`` calls of ``fn`` under torch.profiler."""
+    _, dev, _ = device_profile(lambda: [fn() for _ in range(calls)])
+    parts = {}
+    for part in names:
+        us = [e.time_range.elapsed_us() for e in dev if part in e.name]
+        parts[part] = sum(us) / len(us) / 1e3 if us else None
+    return parts
+
+
+def fmt_ms(x):
+    return "not measured (no device events)" if x is None else f"{x:.4f} ms"
+
+
+def ev_sizes(phase, card, name, kernel, plain, mains, occ):
+    """K3 or K5 (``name``) on :func:`kernel_sizes`'s calls.  The floor the
+    sums need beside rtol 5e-5 at 6,400 poses stayed 0 (PERF.md): the
+    common atol."""
+    pose_bits = name == "K5"
+    body = "elec_vdw_pairs_v1_kernel" if pose_bits else "elec_vdw_pairs_kernel"
+
+    def bound_fn(main, out):
+        return bound_v1(main, out, FLOPS_EV_NEAR) if pose_bits else bound(main, out, ev=True)
+
+    return kernel_sizes(phase, card, name, kernel, plain, mains, occ, body, bound_fn)
+
+
+def k4_phase(phase, card, dfire_v1, occ):
+    """Phase 14's K4 figures: at G = 200 (the path's poses; and per pose,
+    the 1ppe stand-in with 10 + 10 ANM modes) and on ``EV_BATCH`` poses
+    (``toy_system(1615, 221, 6400, dfire_mode="steps")``, rigid and per
+    pose), :func:`kernel_sizes` (the batch against plain at rtol 5e-5
+    with ``K4_BATCH_ATOL``).  Returns the max error."""
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
+
+    anm_v1 = KernelPath("1ppe DFIRE + ANM v1", standin.toy_system(
+        *DFIRE_ATOMS, N_POSES, num_anm=DNA_ANM, dfire_mode="steps"), energy_mode="kernel_v1")
+    mains = {f"rigid G={N_POSES}": dfire_v1.energy_fn.kernel_args(
+        dfire_v1.tp, *dfire_v1.pose(N_POSES)),
+        f"per-pose G={N_POSES}": anm_v1.energy_fn.kernel_args(anm_v1.tp, *anm_v1.pose(N_POSES))}
+    for label, anm in (("rigid", 0), ("per-pose", DNA_ANM)):
+        path = KernelPath(f"1ppe DFIRE v1 {label} G={EV_BATCH}", standin.toy_system(
+            *DFIRE_ATOMS, EV_BATCH, num_anm=anm, dfire_mode="steps"), energy_mode="kernel_v1")
+        mains[f"{label} G={EV_BATCH}"] = path.energy_fn.kernel_args(path.tp,
+                                                                    *path.pose(EV_BATCH))
+    return kernel_sizes(phase, card, "K4", k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain, mains,
+                        occ, "dfire_pairs_v1_kernel",
+                        lambda main, out: bound_v1(main, out, FLOPS_DFIRE),
+                        batch_atol=K4_BATCH_ATOL)
 
 
 def ev_batch_mains(systems, mode):
@@ -917,10 +998,37 @@ def v1_kernel_cases(path, phase, gen, rng):
         b16 = a[:2] + (a[2].to(torch.bfloat16),) + a[3:]
         max_err = max(max_err, compare(path, b16, kw, phase,
                                        f"G={N_POSES} bfloat16 step tables"))
+        max_err = max(max_err, k4_edges(phase))
     again = path.kernel(*main[0], **main[1])
     first = path.kernel(*main[0], **main[1])
     check(torch.equal(again[0], first[0]), f"{path.label}: sums differ between runs")
     return max_err, main
+
+
+def k4_edges(phase):
+    """K4, rigid and per-pose receptor, against plain on pairs at every bin
+    edge and within ``EDGE_ULPS`` ulps either side (the step-table form of
+    ``standin.bin_edge_case``): sums and flags exactly equal.  Returns the
+    max error."""
+    import types
+
+    import torch
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
+
+    err = 0.0
+    path = types.SimpleNamespace(label=f"bin edges +-{EDGE_ULPS} ulps")
+    for per_pose in (False, True):
+        args, kwargs = standin.bin_edge_case("cuda", per_pose=per_pose, ulps=EDGE_ULPS).k4
+        err = max(err, compare(path, args, kwargs, phase, f"G={args[1].shape[0]} per-pose "
+                               f"receptor {per_pose}", k4.dfire_pairs_v1,
+                               k4.dfire_pairs_v1_plain))
+        out = k4.dfire_pairs_v1(*args, **kwargs)
+        ref = k4.dfire_pairs_v1_plain(*args, **kwargs)
+        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+              f"K4 at the bin edges is not exactly plain (per pose {per_pose})")
+    return err
 
 
 def bound_v1(main, out, flops_per_pair):
@@ -1233,7 +1341,7 @@ def probe_phase(card):
 
     counters = (pops.select_reps, pops.receptor_loop, pops.gather_form)
     dev = probes.resolve_device("cuda")
-    records, results, timed = [], [], []
+    records, results, timed, wrapper_ms = [], [], [], {}
     t_phase = time.perf_counter()
     for pid in sorted(probes.SCRIPTS):
         mod = probes.load(pid)
@@ -1280,6 +1388,10 @@ def probe_phase(card):
                 lib_ms = cuda_ms(lib, 20)
                 lib_note = (f"{lib_ms:.4f} ms (max|diff| from the kernel "
                             f"{float((lib() - out).abs().max()):.3e})")
+                # The wrapper called as the PyTorch call is, without the
+                # entry point's Variant between.
+                wrap, kw = getattr(pops, v.op), {k: t[a] for k, a in v.args.items()}
+                wrapper_ms[name] = cuda_ms(lambda: wrap(**kw, **v.kwargs), 20)
             bnd = probe_bound(v, t, out)
             say(f"phase 18: [{card}] {name}: kernel {res.ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bnd[0]:.6f} ms ({bnd[1]}), PyTorch call {lib_note}, launches {ours}")
@@ -1288,7 +1400,18 @@ def probe_phase(card):
         if pid == "P1":
             check(torch.equal(outs["tak"], outs["tourn"]), "P1: tak and tourn differ")
     say(f"phase 18: [{card}] {probes.ab_line(results)}")
-    probe_device_times(timed, card)
+    dev_us = probe_device_times(timed, card)
+    parts = []
+    for rec in records:
+        if rec["library_ms"] is not None:
+            name, lib_ms = rec["name"], rec["library_ms"]
+            us = dev_us.get(name)
+            parts.append(f"{name} wrapper {wrapper_ms[name]:.4f} ms ({rec['ms']:.4f} through "
+                         f"the entry point) against {lib_ms:.4f} ms "
+                         f"({wrapper_ms[name] / lib_ms:.2f}x), device "
+                         + ("not measured" if us is None else f"{us:.3f} us"))
+    say(f"phase 18: [{card}] wrapper beside its one PyTorch call (CUDA events, 20 calls): "
+        + "; ".join(parts))
     say(f"phase 18: {len(records)} probe variants in {time.perf_counter() - t_phase:.1f} s")
     return records
 
@@ -1298,7 +1421,8 @@ def probe_device_times(timed, card, calls=10):
     events of its ``calls`` calls over ``calls``, from one torch.profiler
     window that runs the variants one after another with a fill kernel
     between two variants to part their events.  Beside its work: for the
-    small forms the wrapper's call time is the host's, not the card's."""
+    small forms the wrapper's call time is the host's, not the card's.
+    Returns {variant: device us a call}, empty when not measured."""
     import torch
 
     sep = torch.zeros(1, device="cuda")
@@ -1329,20 +1453,23 @@ def probe_device_times(timed, card, calls=10):
         say(f"phase 18: [{card}] probe device times not measured: the profiler "
             f"parted {len(dev)} device events into {len(groups)} groups for "
             f"{len(timed)} variants")
-        return
+        return {}
     kernels = {"select_reps": ("select_reps_kernel", "sum_rows_kernel", "rep_acc_kernel"),
                "receptor_loop": ("receptor_loop_kernel",),
-               "gather_form": ("gather_form_kernel",)}
-    parts = []
+               "gather_form": ("gather_form_kernel", "gather_form_reps_kernel")}
+    parts, dev_us = [], {}
     for (name, v, _), events in zip(timed, groups):
         names = kernels[v.op]
         check(all(any(k in e.name for k in names) for e in events),
               f"{name}: device events of another kernel {[e.name[:60] for e in events][:3]}")
         us = sum(e.time_range.elapsed_us() for e in events) / calls
+        dev_us[name] = us
+        expected = calls * (1 if v.op == "gather_form" else len(names))
         parts.append(f"{name} {us:.3f} us ({us * 1e3 / v.work:.5f} ns a pair; "
-                     f"{len(events)} events, {calls * len(names)} expected)")
+                     f"{len(events)} events, {expected} expected)")
     say(f"phase 18: [{card}] probe device time a call (torch.profiler, {calls} calls "
         "each): " + "; ".join(parts))
+    return dev_us
 
 
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
@@ -1398,6 +1525,10 @@ def main() -> int:
     say("phase 1: elec/vdw kernels: " + "; ".join(
         f"{k} {regs} registers, {local} B local, {warps} resident warps an SM"
         for k, (regs, local, warps) in occ_ev.items()))
+    occ_k4 = k4_occupancy(built, 21, 32)
+    say("phase 1: step-form DFIRE kernel (21 channels, 32-row tiles): " + "; ".join(
+        f"{k} {regs} registers, {local} B local, {warps} resident warps an SM"
+        for k, (regs, local, warps) in occ_k4.items()))
 
     counters = (dp.dfire_pairs, dp.dfire_pairs_worklist, ev.elec_vdw_pairs,
                 k4.dfire_pairs_v1, k5.elec_vdw_pairs_v1)
@@ -1472,6 +1603,7 @@ def main() -> int:
     k4_launches, step1 = drive(dfire_v1, counters, 14)
     oracle(dfire_v1, step1, 14)
     k4_ms, k4_plain_ms = timing(dfire_v1, k4_main, card, (14, 14))
+    k4_err = max(k4_err, k4_phase(14, card, dfire_v1, occ_k4))
 
     # -- 15. K5 and the 1azp DNA + ANM v1 path ---------------------------------
     rigid_v1 = KernelPath("1azp DNA rigid v1", standin.toy_system(

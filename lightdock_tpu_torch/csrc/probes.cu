@@ -21,8 +21,18 @@
 //     SMEM); the (R, 32, L) table (53.5 MB at P3) is read through L1/L2.
 //     The chain is bound by its instructions, the gather reads one scattered
 //     entry a pair.
-//   gather_form_kernel<kForm>     (P4-P6) one thread per (p, l), one
-//     expression each; these are a few microseconds and launch-bound.
+//   gather_form_kernel<kForm>     (P4-P6) one thread per (p, l): the
+//     single-shot forms' one expression, a microsecond or two, and the
+//     loops whose terms are a load and an operation or two, in turn.
+//   gather_form_reps_kernel<kForm> (P4-P6) the loops whose term is a
+//     correctly rounded sqrt and a gather, or a 21-entry chain (8-64 reps
+//     an element): one thread per (element, rep) term, so the 4,096-8,192
+//     elements' 32k-524k terms fill the card where one thread an element
+//     ran its reps in turn on 2 warps an SM; each element's terms are then
+//     added in rep order from shared memory, so the sums are the loop's,
+//     bit for bit.
+//   A call is bound by the host's work, not the card's: the wrapper
+//   (ops/probes.py) keeps it to the checks, one allocation and the call.
 //
 // Numbers follow the JAX probes: d2 and every sum with explicit
 // round-to-nearest intrinsics (no contraction into FMA), sqrtf correctly
@@ -49,6 +59,7 @@ constexpr int kNSlot = 32;        // slots of the arithmetic binning
 constexpr int kMaxChain = 20;     // thresholds of a chain
 constexpr int kLoopThreads = 64;
 constexpr int kFormThreads = 128;
+constexpr int kRepThreads = 256;   // gather_form_reps_kernel: terms a pass
 
 enum SelectMode { kChain = 0, kTak = 1, kTourn = 2 };
 enum LoopMode { kLoopSlot = 0, kLoopGather = 1, kLoopChain = 2 };
@@ -228,56 +239,113 @@ struct FormArgs {
   int n, l_count, n_slot, rec_cols, reps, row;
 };
 
+// The tables' entries of one ligand column l: at(t, s) is entry s of
+// table t.
+struct Column {
+  const float* p;      // tab + l
+  size_t table, row;   // n_slot * L, L
+  __device__ __forceinline__ float at(int t, int s) const { return __ldg(p + t * table + s * row); }
+};
+
+__device__ __forceinline__ Column column(const FormArgs& a, int e) {
+  const size_t row = (size_t)a.l_count;
+  return Column{a.tab + e % a.l_count, (size_t)a.n_slot * row, row};
+}
+
+template <int kForm>
+constexpr bool kSingleShot = kForm == kBare || kForm == kSlotGather || kForm == kTouch ||
+                             kForm == kSqrt || kForm == kTruncCast;
+// Loop forms whose term is heavy: a correctly rounded sqrt (the slot of
+// x + r) or a 21-entry chain a rep.  The others' terms are a load and an
+// operation or two.
+template <int kForm>
+constexpr bool kHeavyTerm = kForm == kStaticLoop || kForm == kSliceLoop || kForm == kChainLoop;
+
+// One single-shot form's value at element e.
+template <int kForm>
+__device__ __forceinline__ float form_value(const FormArgs& a, const Column& c, int e) {
+  if constexpr (kForm == kBare) {   // indices clipped into the table, as the plain version does
+    return c.at(a.row, min(max(a.idx[e], 0), a.n_slot - 1));
+  } else if constexpr (kForm == kSlotGather) {
+    return c.at(a.row, slot_of(a.x[e]));
+  } else if constexpr (kForm == kTouch) {
+    return __fadd_rn(a.x[e], c.at(a.row, 0));
+  } else if constexpr (kForm == kSqrt) {
+    return sqrtf(a.x[e]);
+  } else {   // kTruncCast
+    return (float)slot_of(a.x[e]);
+  }
+}
+
+// One loop form's term of rep r for an element of value x and column c.
+template <int kForm>
+__device__ __forceinline__ float form_term(const FormArgs& a, const Thresholds& thr,
+                                           const Column& c, float x, int r) {
+  if constexpr (kForm == kStaticLoop) {
+    return c.at(a.row, slot_of(__fadd_rn(x, (float)r)));
+  } else if constexpr (kForm == kSliceLoop) {
+    return c.at(r, slot_of(__fadd_rn(x, (float)r)));
+  } else if constexpr (kForm == kRowLoop) {
+    return __fmul_rn(c.at(r, 0), __fadd_rn(__fmul_rn(x, 0.0f), 1.0f));
+  } else if constexpr (kForm == kParityLoop) {
+    const float m = __fsub_rn(__fmul_rn(2.0f, sqrtf(x)), 1.0f);
+    return c.at(r, min(max(__float2int_rz(m) + r % 2, 0), kNSlot - 1));
+  } else if constexpr (kForm == kChainLoop) {
+    float term = c.at(r, 0);
+#pragma unroll
+    for (int k = 0; k < kMaxChain; ++k) {
+      term = x >= thr.v[k] ? __fadd_rn(term, c.at(r, k + 1)) : term;
+    }
+    return term;
+  } else {   // kScalarLoop
+    return __fsub_rn(x, a.rec[(size_t)r * a.rec_cols]);
+  }
+}
+
+// The single-shot forms, and the loops whose terms are light: one thread
+// an element, its reps in turn.
 template <int kForm>
 __global__ void __launch_bounds__(kFormThreads)
 gather_form_kernel(FormArgs a, Thresholds thr) {
   const int e = blockIdx.x * kFormThreads + threadIdx.x;
   if (e >= a.n) return;
-  const int l = e % a.l_count;
-  float x = 0.0f;   // bare reads no x
-  if constexpr (kForm != kBare) x = a.x[e];
-  const size_t row = (size_t)a.l_count;
-  const size_t table = (size_t)a.n_slot * row;
-  // entry s of table t for this thread's l
-  auto at = [&](int t, int s) { return __ldg(a.tab + t * table + s * row + l); };
-  float out;
-  if constexpr (kForm == kBare) {   // indices clipped into the table, as the plain version does
-    out = at(a.row, min(max(a.idx[e], 0), a.n_slot - 1));
-  } else if constexpr (kForm == kSlotGather) {
-    out = at(a.row, slot_of(x));
-  } else if constexpr (kForm == kTouch) {
-    out = __fadd_rn(x, at(a.row, 0));
-  } else if constexpr (kForm == kSqrt) {
-    out = sqrtf(x);
-  } else if constexpr (kForm == kTruncCast) {
-    out = (float)slot_of(x);
+  const Column c = column(a, e);
+  if constexpr (kSingleShot<kForm>) {
+    a.out[e] = form_value<kForm>(a, c, e);
   } else {
+    const float x = a.x[e];   // once, so what the terms derive from it alone is hoisted
     float acc = 0.0f;
-    for (int r = 0; r < a.reps; ++r) {
-      float term;
-      if constexpr (kForm == kStaticLoop) {
-        term = at(a.row, slot_of(__fadd_rn(x, (float)r)));
-      } else if constexpr (kForm == kSliceLoop) {
-        term = at(r, slot_of(__fadd_rn(x, (float)r)));
-      } else if constexpr (kForm == kRowLoop) {
-        term = __fmul_rn(at(r, 0), __fadd_rn(__fmul_rn(x, 0.0f), 1.0f));
-      } else if constexpr (kForm == kParityLoop) {
-        const float m = __fsub_rn(__fmul_rn(2.0f, sqrtf(x)), 1.0f);
-        term = at(r, min(max(__float2int_rz(m) + r % 2, 0), kNSlot - 1));
-      } else if constexpr (kForm == kChainLoop) {
-        term = at(r, 0);
-#pragma unroll
-        for (int k = 0; k < kMaxChain; ++k) {
-          term = x >= thr.v[k] ? __fadd_rn(term, at(r, k + 1)) : term;
-        }
-      } else {   // kScalarLoop
-        term = __fsub_rn(x, a.rec[(size_t)r * a.rec_cols]);
-      }
-      acc = __fadd_rn(acc, term);
-    }
-    out = acc;
+    for (int r = 0; r < a.reps; ++r) acc = __fadd_rn(acc, form_term<kForm>(a, thr, c, x, r));
+    a.out[e] = acc;
   }
-  a.out[e] = out;
+}
+
+// The loops of heavy terms: a block takes `elems` elements and spreads their
+// (element, rep) terms over its threads, one term a thread, kRepThreads /
+// elems reps a pass; then thread t < elems adds element t's terms from
+// shared memory in rep order onto its running sum, from zero, as the loop
+// does.
+template <int kForm>
+__global__ void __launch_bounds__(kRepThreads)
+gather_form_reps_kernel(FormArgs a, Thresholds thr, int elems) {
+  __shared__ float s_term[kRepThreads];
+  const int e0 = blockIdx.x * elems;
+  const int batch = kRepThreads / elems;   // reps a pass
+  const int t = threadIdx.x;
+  const int e_term = e0 + t % elems;       // this thread's term: (element, rep)
+  float acc = 0.0f;
+  for (int r0 = 0; r0 < a.reps; r0 += batch) {
+    const int n = min(batch, a.reps - r0);
+    if (t < n * elems && e_term < a.n) {
+      s_term[t] = form_term<kForm>(a, thr, column(a, e_term), a.x[e_term], r0 + t / elems);
+    }
+    __syncthreads();
+    if (t < elems) {
+      for (int r = 0; r < n; ++r) acc = __fadd_rn(acc, s_term[r * elems + t]);
+    }
+    __syncthreads();
+  }
+  if (t < elems && e0 + t < a.n) a.out[e0 + t] = acc;
 }
 
 Thresholds fill(const float* thresholds, int n) {
@@ -325,8 +393,21 @@ int launch_loop(const float* lig, const float* rec, const float* tab, float* out
   return (int)cudaGetLastError();
 }
 
+// A loop of heavy terms over more than one rep spreads its terms over
+// threads; everything else runs one thread an element.  On the H100 the
+// spread took the 64-rep slot gathers from 12-18 us to 6 and the 64-rep
+// chain from 55 to 22, and made the light loops and a one-rep chain
+// slower (PERF.md).
 template <int kForm>
 int launch_form(const FormArgs& a, const Thresholds& thr, cudaStream_t s) {
+  if constexpr (kHeavyTerm<kForm>) {
+    if (a.reps > 1) {
+      const int elems = kRepThreads / min(a.reps, kRepThreads);
+      gather_form_reps_kernel<kForm><<<(a.n + elems - 1) / elems, kRepThreads, 0, s>>>(a, thr,
+                                                                                     elems);
+      return (int)cudaGetLastError();
+    }
+  }
   gather_form_kernel<kForm><<<(a.n + kFormThreads - 1) / kFormThreads, kFormThreads, 0, s>>>(
       a, thr);
   return (int)cudaGetLastError();

@@ -101,4 +101,5 @@ def load_all(names) -> dict[str, BuiltLibrary]:
 
 def load(name: str) -> BuiltLibrary:
     """Compile ``csrc/<name>.cu`` if needed and load it (once a process)."""
-    return load_all([name])[name]
+    built = _loaded.get(name)   # the common case, a dictionary lookup a launch
+    return built if built is not None else load_all([name])[name]

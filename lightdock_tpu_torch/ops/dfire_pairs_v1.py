@@ -30,6 +30,13 @@ them instead of padding).  d2 is the direct difference ((dx dx + dy dy) +
 dz dz), as in the dense oracle; the TPU kernel's |r|^2 + |l|^2 - 2 r.l
 form was an MXU device.
 
+The kernel takes a pair's channel from its 0.5 A distance slot
+(:func:`.dfire_pairs.slot_bins`), which equals the count of thresholds
+passed only where every threshold is 0 or a slot edge ((m + 1) / 2)^2:
+:func:`dfire_pairs_v1` raises on any other, on the CPU as on the card
+(the JAX kernel takes any ascending thresholds; every table that
+``engine.params.dfire_step_tables`` builds lies on the grid).
+
 On a CPU tensor :func:`dfire_pairs_v1` runs :func:`dfire_pairs_v1_plain`;
 on a CUDA tensor it launches the kernel or raises.  There is no fallback.
 """
@@ -37,18 +44,18 @@ on a CUDA tensor it launches the kernel or raises.  There is no fallback.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from .. import constants as C
 from . import _build
-from .dfire_pairs import IFACE2
+from .dfire_pairs import IFACE2, MAX_R_TILE, slot_bins
 from .tiling import check_pose_bits, expand_pose_bits, tile_sums
 
 MAX_CHANNELS = 32   # thresholds the kernel takes
-KERNEL_THREADS = 128
-KERNEL_PAIRS = 4    # receptor rows a thread owns (kPairs)
+LIG_BLOCK = 16      # ligand atoms a kernel block (kLig)
 PLAIN_POSES = 16    # poses per step of the plain version's loop
 
 
@@ -112,11 +119,20 @@ def dfire_pairs_v1_plain(rec_all, lig_all, dq, thresholds, active,
     return raw, ifr, ifl
 
 
+def _slot_bins(thresholds):
+    """The kernel's channel of each 0.5 A slot (:func:`.dfire_pairs.slot_bins`);
+    raises on a threshold that is not 0 or a slot edge ((m + 1) / 2)^2."""
+    if not all(math.isfinite(float(s)) for s in thresholds):
+        raise ValueError("DFIRE thresholds must be 0 or 0.5 A slot edges; "
+                         "the kernel bins by slot")
+    return slot_bins(tuple(float(s) for s in thresholds))
+
+
 def _bind(lib):
     fn = lib.dfire_pairs_v1_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-                   + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                   + [ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -125,15 +141,14 @@ def _launch(rec_all, lig_all, dq, thresholds, active, iface_active, r_tile,
             l_tile, need_iface):
     n_r, n_l = _check(rec_all, lig_all, dq, thresholds, active, iface_active,
                       r_tile, l_tile)
-    rows = KERNEL_PAIRS * (KERNEL_THREADS // l_tile) if l_tile <= KERNEL_THREADS else 0
-    if not rows or KERNEL_THREADS % l_tile or r_tile % rows:
-        raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): l_tile must "
-                         f"divide {KERNEL_THREADS} and r_tile be a multiple of "
-                         f"{KERNEL_PAIRS} * ({KERNEL_THREADS} // l_tile)")
+    if r_tile > MAX_R_TILE or l_tile % LIG_BLOCK:
+        raise ValueError(f"unsupported tile ({r_tile}, {l_tile}): r_tile <= "
+                         f"{MAX_R_TILE} and l_tile a multiple of {LIG_BLOCK}")
     if len(thresholds) > MAX_CHANNELS:
         raise ValueError(f"{len(thresholds)} channels; at most {MAX_CHANNELS}")
     if any(b < a for a, b in zip(thresholds[1:], thresholds[2:])):
-        raise ValueError("the kernel's bin search needs ascending thresholds")
+        raise ValueError("the kernel's prefix sums need ascending thresholds")
+    bins = _slot_bins(thresholds)
     for name, x in (("rec_all", rec_all), ("lig_all", lig_all)):
         if x.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32; {name} is {x.dtype}")
@@ -154,16 +169,16 @@ def _launch(rec_all, lig_all, dq, thresholds, active, iface_active, r_tile,
     g, _, nl = lig.shape
     nr = rec.shape[1]
     nr_pad, nl_pad = n_r * r_tile, n_l * l_tile
-    n_blocks = (nr_pad // rows) * n_l
+    n_rows = -(-nr // r_tile) * -(-nl // LIG_BLOCK)   # partial rows: one a block
 
-    partial = torch.empty((n_blocks, g), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_rows, g), dtype=torch.float32, device=dev)
     raw = torch.empty(g, dtype=torch.float32, device=dev)
     if need_iface:
         ifr = torch.zeros((g, nr_pad), dtype=torch.float32, device=dev)
         ifl = torch.zeros((g, nl_pad), dtype=torch.float32, device=dev)
     else:
         ifr = ifl = None
-    thr = (ctypes.c_float * len(thresholds))(*(float(s) for s in thresholds))
+    slots = (ctypes.c_int32 * len(bins))(*bins)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -174,8 +189,8 @@ def _launch(rec_all, lig_all, dq, thresholds, active, iface_active, r_tile,
         err = fn(ptr(rec), ptr(lig), ptr(dq), ptr(act), ptr(iface),
                  ptr(partial), ptr(raw), ptr(ifr), ptr(ifl), nr, nl, nr_pad,
                  nl_pad, g, rec.shape[0], r_tile, l_tile,
-                 int(dq.dtype == torch.bfloat16), int(need_iface), thr,
-                 len(thresholds), C.DFIRE_DIST_CUTOFF2, IFACE2, stream)
+                 int(dq.dtype == torch.bfloat16), int(need_iface), slots,
+                 len(bins), len(thresholds), C.DFIRE_DIST_CUTOFF2, IFACE2, stream)
     if err != 0:
         raise RuntimeError(f"dfire_pairs_v1 kernel launch failed: CUDA error {err}")
     dfire_pairs_v1.launches += 1
@@ -193,6 +208,7 @@ def dfire_pairs_v1(rec_all, lig_all, dq, thresholds, active, iface_active, *,
     raises."""
     args = (rec_all, lig_all, dq, thresholds, active, iface_active)
     dev = lig_all.device.type
+    _slot_bins(thresholds)   # the kernel's refusal, on the CPU as on the card
     if dev == "cpu":
         return dfire_pairs_v1_plain(*args, r_tile=r_tile, l_tile=l_tile,
                                     need_iface=need_iface)

@@ -29,6 +29,7 @@ fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -231,7 +232,7 @@ def _check_form(form, x, tab, idx, rec, thresholds, reps, row):
                 or tab.shape[-1] != ref.shape[1]:
             raise ValueError(f"{form} needs a float32 table (N, S, {ref.shape[1]}) "
                              f"or (S, {ref.shape[1]})")
-        n, s = _gather_tab(tab).shape[:2]
+        n, s = (1, tab.shape[0]) if tab.dim() == 2 else tab.shape[:2]
         if form in GATHERS and s != NSLOT:
             raise ValueError(f"{form} gathers from {NSLOT} slots, the table has {s}")
         if form == "chain_loop" and s < MAX_CHAIN + 1:
@@ -246,9 +247,10 @@ def _check_form(form, x, tab, idx, rec, thresholds, reps, row):
         raise ValueError(f"chain_loop takes {MAX_CHAIN} thresholds, not {len(thresholds)}")
     if reps < 1:
         raise ValueError(f"reps {reps} must be at least 1")
+    dev = ref.device
     for name, t in (("x", x), ("tab", tab), ("idx", idx), ("rec", rec)):
-        if t is not None and t.device != ref.device:
-            raise ValueError(f"{name} is on {t.device}, not {ref.device}")
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, not {dev}")
     return ref
 
 
@@ -309,27 +311,44 @@ def _lib():
     return lib
 
 
-def _floats(values, n):
-    arr = (ctypes.c_float * max(n, 1))()
-    for k, v in enumerate(values):
+@functools.lru_cache(maxsize=64)
+def threshold_array(thresholds: tuple):
+    """The ctypes float array of ``thresholds`` (a tuple of floats), made
+    once a tuple: a call with other values gets another array, never this
+    one.  At least one element, so an empty tuple still has a pointer."""
+    arr = (ctypes.c_float * max(len(thresholds), 1))()
+    for k, v in enumerate(thresholds):
         arr[k] = float(v)
     return arr
 
 
-def _run(name, dev, launch):
-    with torch.cuda.device(dev):
-        err = launch(torch.cuda.current_stream(dev).cuda_stream)
+def _run(name, index, launch):
+    """``launch(stream)`` on the current stream of CUDA device ``index``,
+    switching the current device only when it is another; raises on a
+    launch error.  The current device and the raw stream handle come from
+    ``torch._C`` directly (``torch._C._cuda_getCurrentRawStream`` is what
+    Triton's launcher takes): ``torch.cuda.current_stream`` builds a Python
+    stream object a call, and a single-shot probe's device work is about a
+    microsecond."""
+    if torch._C._cuda_getDevice() == index:
+        err = launch(torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = launch(torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _dispatch(name, dev, plain, launch):
-    """A CPU tensor takes ``plain()``; a CUDA tensor ``launch()``."""
-    if dev.type == "cpu":
-        return plain()
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {dev.type}")
-    return launch()
+def _dispatch(name, ref, plain, launch):
+    """A CUDA tensor ``ref`` takes ``launch()``; a CPU tensor ``plain()``.
+    The CUDA test comes first and reads ``is_cuda``, which builds no
+    ``torch.device``: a single-shot probe's host path is a few
+    microseconds."""
+    if ref.is_cuda:
+        return launch()
+    if ref.device.type != "cpu":
+        raise ValueError(f"{name} runs on cpu or cuda, not {ref.device.type}")
+    return plain()
 
 
 def select_reps(d2, tab, thresholds, mode: str, reps: int):
@@ -353,15 +372,15 @@ def select_reps(d2, tab, thresholds, mode: str, reps: int):
         partial = torch.empty((nb, p * reps), dtype=torch.float32, device=d2.device)
         totals = torch.empty(p * reps, dtype=torch.float32, device=d2.device)
         out = torch.empty((p, 1, 1), dtype=d2.dtype, device=d2.device)
-        thr = _floats(thresholds, len(thresholds))
-        _run("select_reps", d2.device, lambda s: _lib().select_reps_launch(
+        thr = threshold_array(tuple(thresholds))
+        _run("select_reps", d2.get_device(), lambda s: _lib().select_reps_launch(
             x.data_ptr(), t.data_ptr(), partial.data_ptr(), totals.data_ptr(),
             out.data_ptr(), p, r * l, reps, SELECT_MODES[mode],
             int(d2.dtype == torch.bfloat16), len(thresholds), thr, CUTOFF2, s))
         select_reps.launches += 1
         return out
 
-    return _dispatch("select_reps", d2.device,
+    return _dispatch("select_reps", d2,
                      lambda: select_reps_plain(d2, tab, thresholds, mode, reps), launch)
 
 
@@ -385,14 +404,14 @@ def receptor_loop(lig, rec, tab, thresholds, mode: str):
         p, _, l = lig.shape
         a, b, t = lig.contiguous(), rec.contiguous(), tab.contiguous()
         out = torch.empty((p, l), dtype=torch.float32, device=lig.device)
-        thr = _floats(thresholds, len(thresholds))
-        _run("receptor_loop", lig.device, lambda s: _lib().receptor_loop_launch(
+        thr = threshold_array(tuple(thresholds))
+        _run("receptor_loop", lig.get_device(), lambda s: _lib().receptor_loop_launch(
             a.data_ptr(), b.data_ptr(), t.data_ptr(), out.data_ptr(), p, l,
             rec.shape[0], LOOP_MODES[mode], len(thresholds), thr, CUTOFF2, s))
         receptor_loop.launches += 1
         return out
 
-    return _dispatch("receptor_loop", lig.device,
+    return _dispatch("receptor_loop", lig,
                      lambda: receptor_loop_plain(lig, rec, tab, thresholds, mode), launch)
 
 
@@ -405,28 +424,43 @@ def gather_form(form: str, x=None, tab=None, idx=None, rec=None, *, thresholds=(
     ``reps`` the count of the loops, which add in order from zero.
 
     A CPU tensor takes :func:`gather_form_plain`; a CUDA tensor launches
-    ``csrc/probes.cu`` and adds one to ``gather_form.launches``."""
+    ``csrc/probes.cu`` and adds one to ``gather_form.launches``.  The
+    launch does the checks, allocates the output and calls the kernel, with
+    nothing else on the host: a single-shot form's device work is about a
+    microsecond."""
     ref = idx if form == "bare" else x
-
-    def launch():
-        _check_form(form, x, tab, idx, rec, thresholds, reps, row)
-        p, l = ref.shape
-        ops = [None if t is None else t.contiguous() for t in
-               (x, None if tab is None else _gather_tab(tab), idx, rec)]
-        out = torch.empty((p, l), dtype=torch.float32, device=ref.device)
-        thr = _floats(thresholds, len(thresholds))
-        _run("gather_form", ref.device, lambda s: _lib().gather_form_launch(
-            *(None if t is None else t.data_ptr() for t in ops), out.data_ptr(), p, l,
-            FORMS[form][0], 0 if tab is None else ops[1].shape[1],
-            0 if rec is None else rec.shape[1], reps, row, len(thresholds), thr, s))
-        gather_form.launches += 1
-        return out
-
     if ref is None:
         raise ValueError(f"{form} needs {'idx' if form == 'bare' else 'x'} (P, L)")
-    return _dispatch("gather_form", ref.device,
+    return _dispatch("gather_form", ref,
                      lambda: gather_form_plain(form, x, tab, idx, rec, thresholds=thresholds,
-                                               reps=reps, row=row), launch)
+                                               reps=reps, row=row),
+                     functools.partial(_gather_form_launch, form, x, tab, idx, rec,
+                                       thresholds, reps, row))
+
+
+def _gather_form_launch(form, x, tab, idx, rec, thresholds, reps, row):
+    """The launch of :func:`gather_form` on the card: the checks, the
+    output's allocation and one call (:func:`_run`)."""
+    ref = _check_form(form, x, tab, idx, rec, thresholds, reps, row)
+    # The operands as the kernel reads them, kept alive through the call.
+    x = None if x is None else x.contiguous()
+    tab = None if tab is None else tab.contiguous()
+    idx = None if idx is None else idx.contiguous()
+    rec = None if rec is None else rec.contiguous()
+    if form == "bare":
+        out = torch.empty_like(idx, dtype=torch.float32)
+    else:
+        out = torch.empty_like(x)   # (P, L) float32, contiguous like x
+    p, l = ref.shape
+    args = (None if x is None else x.data_ptr(), None if tab is None else tab.data_ptr(),
+            None if idx is None else idx.data_ptr(), None if rec is None else rec.data_ptr(),
+            out.data_ptr(), p, l, FORMS[form][0], 0 if tab is None else tab.shape[-2],
+            0 if rec is None else rec.shape[1], reps, row, len(thresholds),
+            threshold_array(tuple(thresholds)) if thresholds else None)
+    fn = _lib().gather_form_launch
+    _run("gather_form", ref.get_device(), lambda s: fn(*args, s))
+    gather_form.launches += 1
+    return out
 
 
 select_reps.launches = 0

@@ -112,6 +112,7 @@ class BinEdgeCase(NamedTuple):
     d2: np.ndarray       # (G,) float32: the squared distance of pose g's pairs
     rec_half: torch.Tensor    # (K, Nr, T) the tables are built from
     lig_onehot: torch.Tensor  # (T, Nl)
+    k4: tuple            # (args, kwargs) of ops.dfire_pairs_v1: the step tables
 
 
 def edge_d2(ulps: int = 1) -> np.ndarray:
@@ -158,7 +159,11 @@ def bin_edge_case(device="cpu", per_pose: bool = False, n_lig: int = 4,
     3) receptor); every other pair is hundreds of A apart.  The table's
     entry for bin k is (k + 1) times a per-pair factor in [1, 1.75], so a
     pair binned one off moves its pose's sum by at least 1.  Every chunk
-    and interface bit is set; no near bits."""
+    and interface bit is set; no near bits.  ``k4`` holds the same pairs
+    as the inputs of the step-form kernel K4: the step tables (K, Nr,
+    n_lig) whose channels are each pair's factor (so the prefix sum at
+    channel k is the table's entry for bin k), the thresholds, and every
+    per-pose bit set."""
     d2 = edge_d2(ulps)
     g, nr = d2.shape[0], 32
     thresholds = dfire_bin_thresholds(tables.dfire_tables()["dist_to_bins"])
@@ -176,7 +181,11 @@ def bin_edge_case(device="cpu", per_pose: bool = False, n_lig: int = 4,
     args = (torch.as_tensor(rec, device=device), torch.as_tensor(lig, device=device),
             tab, act, iface)
     kwargs = dict(r_tile=32, l_tile=128, need_iface=True, near_chunks=None)
-    return BinEdgeCase(args, kwargs, d2, rec_half, lig_onehot)
+    ones = torch.ones((1, 1, g), dtype=torch.int32, device=device)
+    dq = torch.matmul(rec_half, lig_onehot).contiguous()   # (K, Nr, n_lig), exact
+    k4 = ((args[0], args[1], dq, thresholds, ones, ones),
+          dict(r_tile=32, l_tile=128, need_iface=True))
+    return BinEdgeCase(args, kwargs, d2, rec_half, lig_onehot, k4)
 
 
 class CutoffEdgeCase(NamedTuple):

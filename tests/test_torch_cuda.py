@@ -275,6 +275,72 @@ def test_k4_matches_plain(cuda, g, num_anm, need_iface, bf16):
     _check_v1(k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain, args, kwargs, need_iface)
 
 
+@pytest.mark.parametrize("per_pose", [False, True])
+def test_k4_at_bin_edges(cuda, per_pose):
+    """Pairs on every 0.5 A slot edge and within 64 ulps either side, the
+    interface cutoff's too (the step-table form of
+    ``standin.bin_edge_case``, where a pair binned one off moves its pose's
+    sum by at least 1): K4, rigid and per-pose receptor, equals its plain
+    version exactly, sums and flags."""
+    args, kwargs = standin.bin_edge_case(cuda, per_pose=per_pose, ulps=64).k4
+    before = k4.dfire_pairs_v1.launches
+    out = k4.dfire_pairs_v1(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert k4.dfire_pairs_v1.launches == before + 1
+    ref = k4.dfire_pairs_v1_plain(*args, **kwargs)
+    for ours, theirs in zip(out, ref):
+        assert torch.equal(ours, theirs)
+    assert out[1].sum() > 0 and out[2].sum() > 0
+
+
+@pytest.mark.parametrize("r_tile,l_tile", [(16, 64), (32, 32), (24, 16)])
+@pytest.mark.parametrize("num_anm", [0, 2])
+@pytest.mark.parametrize("g", [45, 200])
+def test_k4_other_tiles(cuda, r_tile, l_tile, num_anm, g):
+    """K4 on tiles other than the path's 32 x 128 (at most 32 receptor rows,
+    ligand tiles a multiple of 16 atoms), rigid and per-pose receptor, G a
+    multiple of the 16-pose chunk or not, against its plain version with
+    seeded bits; 40 rows or a 24-atom ligand tile are refused."""
+    args, _ = _v1_kernel_args(cuda, g, "dfire", num_anm)
+    rng = np.random.RandomState(r_tile + l_tile)
+
+    def bits(r, l):
+        shape = (-(-args[0].shape[1] // r), -(-args[1].shape[2] // l), g)
+        return torch.as_tensor((rng.rand(*shape) < 0.7).astype(np.int32), device=cuda)
+
+    a = args[:4] + (bits(r_tile, l_tile), bits(r_tile, l_tile))
+    _check_v1(k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain, a,
+              dict(r_tile=r_tile, l_tile=l_tile), True)
+    for r, l in ((40, 128), (32, 24)):
+        with pytest.raises(ValueError, match="unsupported tile"):
+            k4.dfire_pairs_v1(*args[:4], bits(r, l), bits(r, l), r_tile=r, l_tile=l)
+
+
+@pytest.mark.parametrize("num_anm", [0, 2])
+def test_k4_pose_groups_bit_equal(cuda, num_anm):
+    """The kernel groups 16-pose chunks a block by the batch's size (on the
+    H100: 11 of 400 chunks at 6,400 poses, 7 of 13 at 200, all 3 at 37).
+    The grouping changes where a pose is scored, not how: the first 200
+    and 37 poses of a 6,400-pose batch scored alone give their sums and
+    flags bit for bit."""
+    g = 6400
+    args, kwargs = _v1_kernel_args(cuda, g, "dfire", num_anm)
+
+    def first(n):
+        rec = args[0] if args[0].shape[0] == 1 else args[0][:n]
+        return (rec, args[1][:n], args[2], args[3], args[4][..., :n].contiguous(),
+                args[5][..., :n].contiguous())
+
+    whole = k4.dfire_pairs_v1(*args, **kwargs)
+    for n in (200, 37):
+        out = k4.dfire_pairs_v1(*first(n), **kwargs)
+        for ours, theirs in zip(out, whole):
+            assert torch.equal(ours, theirs[:n])
+    ref = k4.dfire_pairs_v1_plain(*first(200), **kwargs)
+    torch.testing.assert_close(whole[0][:200], ref[0], rtol=5e-5, atol=5e-5)
+    assert torch.equal(whole[1][:200], ref[1]) and torch.equal(whole[2][:200], ref[2])
+
+
 @pytest.mark.parametrize("g", [37, 200])
 @pytest.mark.parametrize("num_anm", [0, 2])
 @pytest.mark.parametrize("need_iface", [True, False])
@@ -338,6 +404,28 @@ def test_probe_kernels_match_plain(cuda, probe):
         assert torch.isfinite(out.float()).all(), v.name
         assert torch.equal(out, ref), (v.name, float((out.float() - ref.float()).abs().max()))
         assert torch.equal(v(t), out), v.name
+
+
+@pytest.mark.parametrize("reps", [1, 7, 64, 65])
+@pytest.mark.parametrize("form", ["static_loop", "slice_loop", "row_loop", "parity_loop",
+                                  "chain_loop", "scalar_loop"])
+def test_gather_form_loops_any_reps(cuda, form, reps):
+    """The loop forms bit-equal to the plain loop at 1, 7, 64 and 65 reps,
+    on 37 x 256 elements (a ragged last block): the heavy terms (slot
+    gathers, the chain) above one rep through the kernel that spreads
+    (element, rep) terms over threads and adds them in rep order (65: two
+    passes of terms for an element), the rest one thread an element."""
+    gen = torch.Generator(device=cuda).manual_seed(reps)
+    x = torch.rand((37, 256), generator=gen, device=cuda) * 200
+    tab = torch.randn((70, 32, 256), generator=gen, device=cuda)
+    rec = torch.randn((70, 3), generator=gen, device=cuda)
+    kw = dict(thresholds=probes.load("P2").THRESH) if form == "chain_loop" else {}
+    args = dict(x=x, rec=rec) if form == "scalar_loop" else dict(x=x, tab=tab)
+    before = ops_probes.gather_form.launches
+    out = ops_probes.gather_form(form, **args, reps=reps, **kw)
+    torch.cuda.synchronize()
+    assert ops_probes.gather_form.launches == before + 1
+    assert torch.equal(out, ops_probes.gather_form_plain(form, **args, reps=reps, **kw))
 
 
 def test_bare_gather_clips_on_card(cuda):

@@ -1,5 +1,5 @@
-"""How the DFIRE pair kernels K1 and K2 bin a pair, and the table they read,
-on the CPU.
+"""How the DFIRE pair kernels K1, K2 and K4 bin a pair, and the table they
+read, on the CPU.
 
 The kernels take a pair's 0.5 A slot from its distance, m = trunc(2 s (1
 + 2^-16) - 1) with s the hardware's approximate float32 sqrt, corrected
@@ -13,7 +13,8 @@ edge; so must the edge compare applied to the correctly rounded sqrt,
 which alone rounds onto seven live thresholds from 1 ulp below.  The
 per-type table must hold the per-atom table's values bit for bit, and
 the plain versions must match the JAX kernel on pairs placed on the
-edges.
+edges.  K4 reads the slot's channel of a pair's prefix sums, which must
+equal the plain version's select chain there bit for bit.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ from lightdock_tpu_torch.engine.energy_kernel import kernel_params  # noqa: E402
 from lightdock_tpu_torch.engine.params import (  # noqa: E402
     dfire_bin_thresholds, torch_params)
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
+from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4  # noqa: E402
 from lightdock_tpu_torch.ops.tiling import dfire_live_channels  # noqa: E402
 from lightdock_tpu_torch.scoring import tables as score_tables  # noqa: E402
 
@@ -123,17 +125,84 @@ def test_approximate_sqrt_slot_equals_threshold_count():
         assert bool(((up == 0) | (up == 1)).all()), k
 
 
-@pytest.mark.parametrize("wrapper", [dp.dfire_pairs, dp.dfire_pairs_worklist])
+@pytest.mark.parametrize("wrapper", [dp.dfire_pairs, dp.dfire_pairs_worklist,
+                                     k4.dfire_pairs_v1])
 def test_wrappers_refuse_off_grid_thresholds(wrapper):
     """A live threshold that is not 0 or a slot edge ((m + 1) / 2)^2 cannot
-    be binned by slot: the wrapper raises, on the CPU as on the card."""
+    be binned by slot: the wrapper raises, on the CPU as on the card (K4
+    takes its thresholds beside the step tables, K1 and K2 in theirs)."""
     case = standin.bin_edge_case()
     tab = case.args[2]
     off = tab.thresholds[:2] + (6.3,) + tab.thresholds[3:]
-    bad = tab._replace(thresholds=off)
-    with pytest.raises(ValueError, match="slot"):
-        wrapper(case.args[0], case.args[1], bad, *case.args[3:], **case.kwargs)
+    if wrapper is k4.dfire_pairs_v1:
+        args, kwargs = case.k4
+        with pytest.raises(ValueError, match="slot"):
+            wrapper(*args[:3], off, *args[4:], **kwargs)
+        with pytest.raises(ValueError, match="slot"):   # an unreachable bin's +inf
+            wrapper(*args[:3], args[3][:-1] + (float("inf"),), *args[4:], **kwargs)
+    else:
+        bad = tab._replace(thresholds=off)
+        with pytest.raises(ValueError, match="slot"):
+            wrapper(case.args[0], case.args[1], bad, *case.args[3:], **case.kwargs)
     assert dp.slot_bins(tab.thresholds)[:7] == (0, 0, 0, 0, 1, 2, 3)
+
+
+def _select_chain(d2, dq, thresholds):
+    """The plain K4's value of a pair: dq[0], then dq[k] added where
+    d2 >= s_k, in channel order (dq (K, n) float32, one column a pair)."""
+    contrib = dq[0].clone()
+    for k in range(1, len(thresholds)):
+        contrib = torch.where(d2 >= thresholds[k], contrib + dq[k], contrib)
+    return contrib
+
+
+def test_k4_slot_channel_equals_select_chain():
+    """K4's form: the pair's prefix sums of its step-table channels,
+    formed in float32 in channel order, read at the slot's channel
+    (``slot_bins`` of the corrected slot from any float32 sqrt within 64
+    ulps of the correctly rounded one) equal the select chain of the plain
+    version bit for bit, near every live threshold and slot edge; each pair
+    has its own random channels, so a channel one off shows."""
+    d2, thr = _edge_d2()
+    step = dfire_bin_thresholds(score_tables.dfire_tables()["dist_to_bins"])
+    assert thr == tuple(float(t) for t in step[step <= C.DFIRE_DIST_CUTOFF2])
+    rng = np.random.RandomState(8)
+    dq = torch.as_tensor(rng.standard_normal((len(thr), d2.numel())).astype(np.float32))
+    prefix = dq.clone()   # the kernel's prefix sums: float32, in channel order
+    for k in range(1, len(thr)):
+        prefix[k] = prefix[k - 1] + dq[k]
+    expected = _select_chain(d2, dq, thr)
+    assert len(set(expected.tolist())) > len(thr)
+    bits = _sqrt_rn(d2).view(torch.int32)
+    cols = torch.arange(d2.numel())
+    for k in range(-ULPS, ULPS + 1):
+        s = torch.where(d2 > 0, bits + k, bits).view(torch.float32)
+        channel = _kernel_bins(d2, thr, s=s)
+        assert torch.equal(prefix[channel, cols], expected), k
+
+
+@pytest.mark.parametrize("per_pose", [False, True])
+def test_k4_bin_edge_case_plain_matches_pallas(per_pose):
+    """The step-table form of ``standin.bin_edge_case`` (the same pairs,
+    channels whose prefix sum at channel k is the table's entry for bin k):
+    the plain K4 equals ``dfire_pairs_pallas`` in interpret mode (rtol
+    5e-6, flags exact; a rigid receptor broadcast for the JAX kernel, as
+    its energy path does) and the plain K1 on the same pairs exactly."""
+    case = standin.bin_edge_case(per_pose=per_pose)
+    (rec, lig, dq, thr, act, iface), kwargs = case.k4
+    g = lig.shape[0]
+    ref = jax.jit(lambda *a: pe.dfire_pairs_pallas(
+        *a[:3], thr, *a[3:], interpret=True, r_tile=32, l_tile=128))(
+        jnp.asarray(rec.expand(g, -1, -1).numpy()), jnp.asarray(lig.numpy()),
+        jnp.asarray(dq.numpy()), jnp.asarray(act.numpy()), jnp.asarray(iface.numpy()))
+    out = k4.dfire_pairs_v1(*case.k4[0], **kwargs)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), rtol=5e-6, atol=0)
+    for ours, theirs in zip(out[1:], ref[1:]):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs)[:, :ours.shape[1]])
+    k1 = dp.dfire_pairs(*case.args, **case.kwargs)
+    for ours, theirs in zip(out, k1):
+        assert torch.equal(ours, theirs)
+    assert int(out[1].sum()) > 0 and int((out[0] > 0).sum()) < g   # flags; 225 + 1 ulp is out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

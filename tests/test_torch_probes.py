@@ -251,3 +251,52 @@ def test_entry_point_on_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry.main(["--only", "P6"])
+
+
+def test_threshold_arrays_made_once_a_tuple():
+    """The kernels' ctypes threshold arrays are made once for each tuple of
+    values: the same values give the same array, other values (one
+    threshold moved, one fewer) another array holding those values, never
+    the cached one; an empty tuple still gives one element."""
+    thr = tuple(probes.load("P2").THRESH)
+    first = ops.threshold_array(thr)
+    assert ops.threshold_array(tuple(float(t) for t in thr)) is first
+    assert list(first) == [np.float32(t) for t in thr]
+    moved = thr[:3] + (thr[3] + 0.25,) + thr[4:]
+    other = ops.threshold_array(moved)
+    assert other is not first and list(other) == [np.float32(t) for t in moved]
+    assert list(first) == [np.float32(t) for t in thr]   # the cached array is untouched
+    shorter = ops.threshold_array(thr[:-1])
+    assert shorter is not first and len(shorter) == len(thr) - 1
+    assert len(ops.threshold_array(())) == 1
+
+
+_TAB = torch.zeros((4, 32, 8))
+_X = torch.full((2, 8), 2.0)
+_IDX = torch.zeros((2, 8), dtype=torch.int32)
+_REFUSED = {
+    "unknown form": (ValueError, dict(form="gather", x=_X)),
+    "no x": (ValueError, dict(form="sqrt")),
+    "x not 2-d": (ValueError, dict(form="sqrt", x=torch.ones(8))),
+    "float64 x": (TypeError, dict(form="sqrt", x=_X.double())),
+    "int64 idx": (TypeError, dict(form="bare", tab=_TAB[0], idx=_IDX.long())),
+    "no table": (ValueError, dict(form="slot_gather", x=_X)),
+    "table width": (ValueError, dict(form="slot_gather", x=_X, tab=torch.zeros((32, 9)))),
+    "table slots": (ValueError, dict(form="slot_gather", x=_X, tab=torch.zeros((16, 8)))),
+    "table row": (ValueError, dict(form="slot_gather", x=_X, tab=_TAB, row=4)),
+    "too few tables": (ValueError, dict(form="slice_loop", x=_X, tab=_TAB, reps=5)),
+    "chain thresholds": (ValueError, dict(form="chain_loop", x=_X, tab=_TAB, thresholds=(1.0,))),
+    "no rec": (ValueError, dict(form="scalar_loop", x=_X, reps=2)),
+    "short rec": (ValueError, dict(form="scalar_loop", x=_X, rec=torch.zeros((1, 3)), reps=2)),
+    "no reps": (ValueError, dict(form="static_loop", x=_X, tab=_TAB[0], reps=0)),
+    "table elsewhere": (ValueError, dict(form="slot_gather", x=_X, tab=_TAB.to("meta"))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_gather_form_refusals(case):
+    """The checks the kernel's launch shares with the plain version: each
+    input the kernel cannot take raises, on the CPU as on the card."""
+    exc, kwargs = _REFUSED[case]
+    with pytest.raises(exc):
+        ops.gather_form(**kwargs)
