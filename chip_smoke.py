@@ -128,7 +128,10 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
     equal to tourn, times the plain version and, where one PyTorch call
     computes the same function (``torch.gather``, ``torch.sqrt``, one add),
     that call; then prints P3's A/B line, v3gather's pairs/s against
-    v2chain's, each variant's device time a call (torch.profiler), and
+    v2chain's, holds the receptor loop's three modes against plain bit
+    for bit at P2's and P3's shapes with coordinates from uniform(-6, 6)
+    (every slot, chain threshold and the cutoff crossed; one line a mode),
+    prints each variant's device time a call (torch.profiler), and
     each variant that has a PyTorch call with its wrapper ms beside that
     call's and its device time.
 
@@ -1400,6 +1403,7 @@ def probe_phase(card):
         if pid == "P1":
             check(torch.equal(outs["tak"], outs["tourn"]), "P1: tak and tourn differ")
     say(f"phase 18: [{card}] {probes.ab_line(results)}")
+    receptor_loop_compact()
     dev_us = probe_device_times(timed, card)
     parts = []
     for rec in records:
@@ -1414,6 +1418,38 @@ def probe_phase(card):
         + "; ".join(parts))
     say(f"phase 18: {len(records)} probe variants in {time.perf_counter() - t_phase:.1f} s")
     return records
+
+
+def receptor_loop_compact():
+    """Phase 18: the receptor loop's kernel against its plain version, bit
+    for bit, at P2's and P3's shapes with coordinates from uniform(-6, 6),
+    where the pairs cross every slot, chain threshold and the cutoff (the
+    scripts' geometry almost never leaves slot 31); one line a mode."""
+    import torch
+
+    from lightdock_tpu_torch import probes
+    from lightdock_tpu_torch.ops import probes as pops
+
+    p2 = probes.load("P2")
+    cases = []
+    for pid in ("P2", "P3"):
+        arrays = probes.load(pid).inputs(span=p2.COMPACT_SPAN)
+        cases.append((pid, {k: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                            for k, a in arrays.items()}))
+    for mode in pops.LOOP_MODES:
+        parts = []
+        for pid, t in cases:
+            args = (t["lig"], t["rec"], t["tab"], p2.THRESH, mode)
+            out, ref = pops.receptor_loop(*args), pops.receptor_loop_plain(*args)
+            torch.cuda.synchronize()
+            same = torch.equal(out, ref) and bool(torch.isfinite(out).all())
+            err = float((out - ref).abs().max())
+            parts.append(f"{pid}'s shapes {tuple(out.shape)} x {t['rec'].shape[0]} "
+                         f"max|diff| {err:.3e}, bit-equal {same}")
+            check(same, f"receptor_loop {mode} at {pid}'s shapes, uniform(-6, 6): kernel "
+                        f"disagrees with its plain version (max|diff| {err:.3e})")
+        say(f"phase 18: receptor_loop {mode} at the compact geometry against plain: "
+            + "; ".join(parts))
 
 
 def probe_device_times(timed, card, calls=10):

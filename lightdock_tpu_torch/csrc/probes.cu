@@ -16,11 +16,33 @@
 //     rows in order, and rep_acc_kernel adds the reps in order in the
 //     working type.  Bound by the instruction rate: about 45-65 operations
 //     an element-rep against under 1 MB of inputs.
-//   receptor_loop_kernel<kMode>   (P2, P3) one thread per (p, l) loops over
-//     the receptor atoms, staged in shared memory (the TPU kept them in
-//     SMEM); the (R, 32, L) table (53.5 MB at P3) is read through L1/L2.
-//     The chain is bound by its instructions, the gather reads one scattered
-//     entry a pair.
+//   receptor_loop_kernel<kMode, kThreads> (P2, P3; the Pallas `kernel` of
+//     exp_gather2d.py and exp_gather32.py) sums each (p, l)'s terms over
+//     the receptor atoms in order.  Bound by issue slots: a pair issues
+//     about 32 instructions (slot), 45 (gather) or 62 (chain): d2 8, the
+//     correctly rounded sqrt 10 and the slot 5, the chain's 20 compares
+//     and 20 predicated adds; the gather at P3 also waits on memory.  One
+//     thread an element ran one receptor atom at a time on 2-8 warps an
+//     SM, a full round trip to memory a step, and every pose read the
+//     table again.  Now:
+//     - many loads in flight: a thread computes one receptor atom's terms
+//       for the 8 poses of its tile before any is added; the chain issues
+//       its 21 loads with no condition, the gather its 8 after the 8 slots
+//       and stores what they bring a batch later, so that they stay in
+//       flight through the barrier (at P3 its entries spread over the
+//       53.5 MB table, more than L2 holds);
+//     - enough warps where elements are few: a block's tile is 8 poses x 8
+//       ligand atoms; all but two of its warps split each batch of receptor
+//       atoms, one a thread, and put the terms in shared memory, where the
+//       other two warps, one thread an element, add the batch before in
+//       receptor order.  The block's threads follow the tiles and the SM
+//       count (1,024 at P3's 128 tiles, 256 at P2's 512): 32 warps an SM;
+//     - table rows shared across poses: the thread that loads tab[r, :, l]
+//       (one 32-byte sector a row for the tile's 8 ligand atoms) applies it
+//       to the tile's 8 poses from registers, so L2 serves P / 8 reads of
+//       the table, not P.  Shared memory holds only the terms; the gather
+//       loads its one entry a pair directly: staging a thread's 32 slots
+//       in shared memory to read 8 ran about 1.8x slower on the H100.
 //   gather_form_kernel<kForm>     (P4-P6) one thread per (p, l): the
 //     single-shot forms' one expression, a microsecond or two, and the
 //     loops whose terms are a load and an operation or two, in turn.
@@ -57,7 +79,16 @@ constexpr int kBatch = 32;        // reps between two block reductions
 constexpr int kK = 21;            // P1's table entries
 constexpr int kNSlot = 32;        // slots of the arithmetic binning
 constexpr int kMaxChain = 20;     // thresholds of a chain
-constexpr int kLoopThreads = 64;
+constexpr int kTileL = 8;         // receptor_loop: ligand atoms a tile, a 32-byte table row
+constexpr int kTileP = 8;         // receptor_loop: poses a tile, sharing each table load
+constexpr int kTileE = kTileL * kTileP;   // a tile's elements: two warps of adders
+constexpr int kTermPitch = kTileE + 8;    // a batch row of terms, padded off the next's banks
+constexpr int kLoopSmThreads = 1024;      // receptor_loop: threads an SM (64 registers)
+constexpr int kMaxDevices = 64;
+
+// receptor_loop: the receptor atoms of a batch, one a computing thread (all
+// but the two warps of adders).
+__host__ __device__ constexpr int loop_atoms(int threads) { return (threads - kTileE) / kTileL; }
 constexpr int kFormThreads = 128;
 constexpr int kRepThreads = 256;   // gather_form_reps_kernel: terms a pass
 
@@ -189,45 +220,120 @@ __global__ void rep_acc_kernel(const float* __restrict__ totals, T* __restrict__
   out[p] = W::store(acc);
 }
 
-// Grid (ceil(L / 64), P); rec (R, 3) staged in dynamic shared memory.
-template <int kMode>
-__global__ void __launch_bounds__(kLoopThreads)
+// A block takes a tile of kTileP poses x kTileL ligand atoms (kTileE
+// elements) and walks the receptor atoms in batches.  Its first two warps
+// are the adders, one thread an element; the others compute, one receptor
+// atom of the batch a thread (kAtoms atoms a batch).  Computing thread
+// (lane_l, rb) takes atom r0 + rb at ligand atom l0 + lane_l for every pose
+// of the tile: the chain loads its 21 entries of tab[r, :, l] once, with no
+// condition, and applies them to the kTileP poses; the gather computes
+// kTileP slots, issues their kTileP loads and stores what they bring one
+// batch later, so the loads stay in flight through the barrier and the
+// next batch's slots.  The terms go to one of two shared buffers, taken in
+// turn; while the computing threads fill one, the adders add the batch in
+// the other onto their elements' running sums, in receptor order, so the
+// adds' chain of dependent additions is off the batch's critical path.  The
+// poses and ligand atoms past a ragged tile's end compute on the last real
+// ones and are not stored.
+template <int kMode, int kThreads>
+__global__ void __launch_bounds__(kThreads, kLoopSmThreads / kThreads)
 receptor_loop_kernel(const float* __restrict__ lig, const float* __restrict__ rec,
                      const float* __restrict__ tab, float* __restrict__ out, Thresholds thr,
-                     int l_count, int r_count, float cutoff2) {
-  extern __shared__ float s_rec[];
-  for (int k = threadIdx.x; k < 3 * r_count; k += blockDim.x) s_rec[k] = rec[k];
-  __syncthreads();
-  const int p = blockIdx.y;
-  const int l = blockIdx.x * kLoopThreads + threadIdx.x;
-  if (l >= l_count) return;
-  const float* lp = lig + (size_t)p * 3 * l_count + l;
-  const float lx = lp[0], ly = lp[l_count], lz = lp[2 * l_count];
-  const size_t row = (size_t)l_count;
-  float acc = 0.0f;
-  for (int r = 0; r < r_count; ++r) {
-    const float dx = __fsub_rn(lx, s_rec[3 * r]);
-    const float dy = __fsub_rn(ly, s_rec[3 * r + 1]);
-    const float dz = __fsub_rn(lz, s_rec[3 * r + 2]);
-    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                               __fmul_rn(dz, dz));
-    const float* tr = tab + (size_t)r * kNSlot * row + l;
-    float term;
-    if constexpr (kMode == kLoopSlot) {
-      term = (float)slot_of(d2);
-    } else if constexpr (kMode == kLoopGather) {
-      term = __ldg(tr + slot_of(d2) * row);
-    } else {
-      float c = __ldg(tr);
-#pragma unroll
-      for (int k = 0; k < kMaxChain; ++k) {
-        c = d2 >= thr.v[k] ? __fadd_rn(c, __ldg(tr + (k + 1) * row)) : c;
+                     int p_count, int l_count, int r_count, float cutoff2) {
+  constexpr int kAtoms = loop_atoms(kThreads);
+  constexpr int kLag = kMode == kLoopGather ? 1 : 0;     // batches from a term to its store
+  extern __shared__ float s_term[];                       // [2][kAtoms][kTermPitch]
+  const int l_tiles = (l_count + kTileL - 1) / kTileL;
+  const int l0 = (blockIdx.x % l_tiles) * kTileL;
+  const int p0 = (blockIdx.x / l_tiles) * kTileP;
+  const int batches = (r_count + kAtoms - 1) / kAtoms;
+  const int rounds = batches + kLag + 1;   // one barrier a round
+
+  if (threadIdx.x < kTileE) {   // an adder: in round i, the batch stored in round i - 1
+    float acc = 0.0f;
+    for (int i = 0; i < rounds; ++i) {
+      const int k = i - 1 - kLag;
+      if (k >= 0) {
+        const float* terms = s_term + (k & 1) * kAtoms * kTermPitch + threadIdx.x;
+        const int n = min(kAtoms, r_count - k * kAtoms);
+        for (int j = 0; j < n; ++j) acc = __fadd_rn(acc, terms[j * kTermPitch]);
       }
-      term = __fmul_rn(c, d2 <= cutoff2 ? 1.0f : 0.0f);
+      __syncthreads();
     }
-    acc = __fadd_rn(acc, term);
+    const int p = p0 + threadIdx.x / kTileL, ll = l0 + threadIdx.x % kTileL;
+    if (p < p_count && ll < l_count) out[(size_t)p * l_count + ll] = acc;
+    return;
   }
-  out[(size_t)p * l_count + l] = acc;
+
+  const int lane_l = (threadIdx.x - kTileE) % kTileL;
+  const int rb = (threadIdx.x - kTileE) / kTileL;
+  const int l = min(l0 + lane_l, l_count - 1);
+  float lx[kTileP], ly[kTileP], lz[kTileP];
+#pragma unroll
+  for (int p = 0; p < kTileP; ++p) {
+    const float* lp = lig + (size_t)min(p0 + p, p_count - 1) * 3 * l_count + l;
+    lx[p] = lp[0];
+    ly[p] = lp[l_count];
+    lz[p] = lp[2 * l_count];
+  }
+  const size_t row = (size_t)l_count;
+  float g[kTileP];   // the gather's entries, stored one round after their loads
+  for (int i = 0; i < rounds; ++i) {
+    const int r0 = i * kAtoms;
+    const int n = i < batches ? min(kAtoms, r_count - r0) : 0;
+    float* mine = s_term + (i & 1) * kAtoms * kTermPitch + rb * kTermPitch + lane_l;
+    const int r = min(r0 + rb, r_count - 1);
+    const float* tr = tab + (size_t)r * kNSlot * row + l;
+    float d2[kTileP];
+    if (rb < n) {
+      const float rx = __ldg(rec + 3 * r), ry = __ldg(rec + 3 * r + 1),
+                  rz = __ldg(rec + 3 * r + 2);
+#pragma unroll
+      for (int p = 0; p < kTileP; ++p) {
+        const float dx = __fsub_rn(lx[p], rx);
+        const float dy = __fsub_rn(ly[p], ry);
+        const float dz = __fsub_rn(lz[p], rz);
+        d2[p] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      }
+    }
+    if constexpr (kMode == kLoopChain) {
+      if (rb < n) {
+        float entry[kMaxChain + 1];
+#pragma unroll
+        for (int k = 0; k <= kMaxChain; ++k) entry[k] = __ldg(tr + k * row);
+#pragma unroll
+        for (int p = 0; p < kTileP; ++p) {
+          float c = entry[0];
+#pragma unroll
+          for (int k = 0; k < kMaxChain; ++k) {
+            c = d2[p] >= thr.v[k] ? __fadd_rn(c, entry[k + 1]) : c;
+          }
+          mine[p * kTileL] = __fmul_rn(c, d2[p] <= cutoff2 ? 1.0f : 0.0f);
+        }
+      }
+    } else if constexpr (kMode == kLoopSlot) {
+      if (rb < n) {
+#pragma unroll
+        for (int p = 0; p < kTileP; ++p) mine[p * kTileL] = (float)slot_of(d2[p]);
+      }
+    } else {
+      int slot[kTileP];
+      if (rb < n) {
+#pragma unroll
+        for (int p = 0; p < kTileP; ++p) slot[p] = slot_of(d2[p]);
+      }
+      if (i > 0 && rb < min(kAtoms, r_count - (r0 - kAtoms))) {   // the previous round's loads
+        float* prev = s_term + ((i - 1) & 1) * kAtoms * kTermPitch + rb * kTermPitch + lane_l;
+#pragma unroll
+        for (int p = 0; p < kTileP; ++p) prev[p * kTileL] = g[p];
+      }
+      if (rb < n) {
+#pragma unroll
+        for (int p = 0; p < kTileP; ++p) g[p] = __ldg(tr + slot[p] * row);
+      }
+    }
+    __syncthreads();
+  }
 }
 
 struct FormArgs {
@@ -379,18 +485,55 @@ int select_all(int mode, const void* d2, const void* tab, float* partial, float*
   return (int)cudaGetLastError();
 }
 
+// The SM count of device dev, queried once a device; 0 on an error.
+int sm_count(int dev) {
+  static int counts[kMaxDevices] = {};
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    counts[dev] = 0;
+  }
+  return counts[dev];
+}
+
+template <int kMode, int kThreads>
+int launch_loop_as(const float* lig, const float* rec, const float* tab, float* out,
+                   const Thresholds& thr, int p_count, int l_count, int r_count, float cutoff2,
+                   int blocks, int dev, cudaStream_t s) {
+  auto kernel = receptor_loop_kernel<kMode, kThreads>;
+  constexpr size_t smem = (size_t)2 * loop_atoms(kThreads) * kTermPitch * sizeof(float);
+  static bool ready[kMaxDevices] = {};   // the shared-memory allowance, set once a device
+  if (!ready[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ready[dev] = true;
+  }
+  kernel<<<blocks, kThreads, smem, s>>>(lig, rec, tab, out, thr, p_count, l_count, r_count,
+                                        cutoff2);
+  return (int)cudaGetLastError();
+}
+
+// The threads of a block, chosen from the tiles and the SMs so that the
+// card holds about kLoopSmThreads threads an SM: where the tiles leave at
+// most one block an SM (P3: 128 tiles), 1,024 threads and 120 receptor
+// atoms a batch; else (P2: 512 tiles) 256 and 24, four blocks an SM.
 template <int kMode>
 int launch_loop(const float* lig, const float* rec, const float* tab, float* out,
                 const Thresholds& thr, int p_count, int l_count, int r_count, float cutoff2,
                 cudaStream_t s) {
-  auto kernel = receptor_loop_kernel<kMode>;
-  const size_t smem = (size_t)3 * r_count * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  const int blocks = ((p_count + kTileP - 1) / kTileP) * ((l_count + kTileL - 1) / kTileL);
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((l_count + kLoopThreads - 1) / kLoopThreads, p_count);
-  kernel<<<grid, kLoopThreads, smem, s>>>(lig, rec, tab, out, thr, l_count, r_count, cutoff2);
-  return (int)cudaGetLastError();
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int sms = sm_count(dev);
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  if (blocks <= sms) {
+    return launch_loop_as<kMode, 1024>(lig, rec, tab, out, thr, p_count, l_count, r_count,
+                                       cutoff2, blocks, dev, s);
+  }
+  return launch_loop_as<kMode, 256>(lig, rec, tab, out, thr, p_count, l_count, r_count,
+                                    cutoff2, blocks, dev, s);
 }
 
 // A loop of heavy terms over more than one rep spreads its terms over

@@ -21,14 +21,19 @@ from . import Variant
 P, L, R = 128, 256, 512
 NSLOT = 32
 THRESH = tuple(((np.arange(1, 21) + 1.0) ** 2 / 4.0).tolist())
+# The scripts draw coordinates from uniform(-20, 20), where almost every
+# pair lies past 15.5 A (slot 31, every threshold passed).  From
+# uniform(-6, 6) pair distances run from 0 to 20.8 A: every slot, every
+# chain threshold and the 15 A cutoff are crossed.
+COMPACT_SPAN = 6.0
 
 
-def inputs(seed=5, *, P=P, L=L, R=R):
-    """lig (P, 3, L) and rec (R, 3) from uniform(-20, 20), tab (R, 32, L)
-    from randn, drawn in that order from one seed, float64."""
+def inputs(seed=5, *, P=P, L=L, R=R, span=20.0):
+    """lig (P, 3, L) and rec (R, 3) from uniform(-span, span), tab (R, 32,
+    L) from randn, drawn in that order from one seed, float64."""
     rng = np.random.RandomState(seed)
-    lig = rng.uniform(-20, 20, (P, 3, L))
-    rec = rng.uniform(-20, 20, (R, 3))
+    lig = rng.uniform(-span, span, (P, 3, L))
+    rec = rng.uniform(-span, span, (R, 3))
     return {"lig": lig, "rec": rec, "tab": rng.randn(R, NSLOT, L)}
 
 

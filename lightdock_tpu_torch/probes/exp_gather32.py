@@ -19,9 +19,9 @@ P, L, R, NSLOT = 32, 256, 1632, 32
 THRESH = exp_gather2d.THRESH
 
 
-def inputs(seed=5, *, P=P, L=L, R=R):
+def inputs(seed=5, *, P=P, L=L, R=R, span=20.0):
     """lig, rec and tab as P2 draws them, at these shapes."""
-    return exp_gather2d.inputs(seed, P=P, L=L, R=R)
+    return exp_gather2d.inputs(seed, P=P, L=L, R=R, span=span)
 
 
 def variants(arrays):

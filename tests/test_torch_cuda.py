@@ -406,6 +406,32 @@ def test_probe_kernels_match_plain(cuda, probe):
         assert torch.equal(v(t), out), v.name
 
 
+@pytest.mark.parametrize("span", [20.0, 6.0])
+@pytest.mark.parametrize("p", [1, 3, 128])
+@pytest.mark.parametrize("r", [1, 17, 1633])
+@pytest.mark.parametrize("l", [37, 300])
+@pytest.mark.parametrize("mode", ["slot", "gather", "chain"])
+def test_receptor_loop_ragged(cuda, mode, l, r, p, span):
+    """The receptor loop bit-equal to its plain version at ragged shapes:
+    a partial tile of 8 ligand atoms (37, 300) and of 8 poses (1, 3), a
+    batch's ragged tail (17 and 1,633 receptor atoms; one atom), and both
+    of the kernel's block sizes (1,024 threads at up to one tile an SM,
+    256 at 608 tiles); at the scripts' geometry (uniform(-20, 20)) and the
+    compact one (uniform(-6, 6), every slot, threshold and the cutoff
+    crossed).  One launch a call; two launches bit-equal."""
+    arrays = probes.load("P2").inputs(seed=r + l, P=p, L=l, R=r, span=span)
+    t = {k: torch.as_tensor(a, dtype=torch.float32, device=cuda) for k, a in arrays.items()}
+    thr = probes.load("P2").THRESH
+    before = ops_probes.receptor_loop.launches
+    out = ops_probes.receptor_loop(t["lig"], t["rec"], t["tab"], thr, mode)
+    torch.cuda.synchronize()
+    assert ops_probes.receptor_loop.launches == before + 1
+    ref = ops_probes.receptor_loop_plain(t["lig"], t["rec"], t["tab"], thr, mode)
+    assert out.shape == (p, l) and torch.isfinite(out).all()
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert torch.equal(ops_probes.receptor_loop(t["lig"], t["rec"], t["tab"], thr, mode), out)
+
+
 @pytest.mark.parametrize("reps", [1, 7, 64, 65])
 @pytest.mark.parametrize("form", ["static_loop", "slice_loop", "row_loop", "parity_loop",
                                   "chain_loop", "scalar_loop"])

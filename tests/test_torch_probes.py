@@ -21,6 +21,7 @@ to bfloat16 on both sides: one bfloat16 ulp, rtol 2^-8 (measured 0, at
 3 reps and at 300, where i > 256 is inexact in bfloat16).
 """
 
+import functools
 import importlib.util
 import pathlib
 import signal
@@ -42,6 +43,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 P1_SHAPES, P1_REPS = dict(P=2, R=8, L=128), 3
 CHAIN16_LONG_REPS = 300   # past i = 256, where i in bfloat16 stops being exact
 LOOP_R = 16
+COMPACT = dict(P=4, L=128, R=16)   # the receptor loop at the compact geometry
 # Variant names of each probe in the script's order (the port's variants()).
 NAMES = {
     "P1": ["chain", "tak", "tourn", "chain16"],
@@ -189,6 +191,38 @@ def test_chain16_long_reps_matches_jax(recorded):
         assert np.array_equal(_bits(t[key]), op.view(np.int16)), key
     got, ref = v(t).float().numpy(), rec["out"].astype(np.float32)
     np.testing.assert_allclose(got, ref, rtol=2.0 ** -8, atol=0)
+
+
+@pytest.mark.parametrize("probe,name", [("P2", "slot"), ("P2", "gather"), ("P2", "chain"),
+                                        ("P3", "v3gather"), ("P3", "v2chain")])
+def test_receptor_loop_plain_matches_script_kernel_compact(probe, name):
+    """The receptor loop's plain version bit-equal to the script's own
+    ``kernel``, run through ``pl.pallas_call(..., interpret=True)``, at the
+    compact geometry (coordinates from uniform(-6, 6), (P, L, R) = (4,
+    128, 16)), where the pairs reach every slot 0-31, both sides of every
+    chain threshold and of the 15 A cutoff; the scripts' uniform(-20, 20)
+    almost never leaves slot 31."""
+    mod = probes.load(probe)
+    arrays = mod.inputs(span=probes.load("P2").COMPACT_SPAN, **COMPACT)
+    lig, rec, tab = (np.asarray(arrays[k], np.float32) for k in ("lig", "rec", "tab"))
+    d2 = ((lig[None] - rec[:, None, :, None]) ** 2).sum(2)
+    assert np.unique(np.clip((2 * np.sqrt(d2) - 1).astype(np.int32), 0, 31)).size == 32
+    assert d2.min() < mod.THRESH[0] and (d2 > ops.CUTOFF2).any() and (d2 < ops.CUTOFF2).any()
+    path = list(sys.path)
+    with pytest.MonkeyPatch.context() as mp:
+        _quiet_scripts(mp)
+        script = _load_script(probes.SCRIPTS[probe])
+    assert sys.path == path
+    script.R = COMPACT["R"]   # the kernel's loop reads the module's R
+    call = pl.pallas_call(functools.partial(script.kernel, name), interpret=True,
+                          out_shape=jax.ShapeDtypeStruct((COMPACT["P"], COMPACT["L"]),
+                                                         jax.numpy.float32))
+    ref = np.asarray(call(lig, rec, tab))
+    (v,) = [v for v in mod.variants(arrays) if v.name == name]
+    t = v.tensors(arrays, "cpu")
+    for key, x in (("lig", lig), ("rec", rec), ("tab", tab)):
+        assert np.array_equal(t[key].numpy(), x), key
+    np.testing.assert_array_equal(v(t).numpy(), ref)
 
 
 def test_p1_tak_equals_tourn_not_chain():
