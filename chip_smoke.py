@@ -131,9 +131,13 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
     v2chain's, holds the receptor loop's three modes against plain bit
     for bit at P2's and P3's shapes with coordinates from uniform(-6, 6)
     (every slot, chain threshold and the cutoff crossed; one line a mode),
-    prints each variant's device time a call (torch.profiler), and
-    each variant that has a PyTorch call with its wrapper ms beside that
-    call's and its device time.
+    prints each variant's device time a call (torch.profiler; P1's two
+    kernels, ``select_reps_kernel`` and ``rep_sum_kernel``, and no other
+    a call), each variant that has a PyTorch call with its wrapper ms
+    beside that call's and its device time, and for each P1 variant its
+    device time, wrapper ms, bound, the SASS instructions its kernel
+    issues an element-rep (``cuobjdump -sass``) with their time at full
+    issue, its registers and resident warps an SM.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its f32 operations over
@@ -1334,9 +1338,11 @@ def probe_library(v, t):
     return None
 
 
-def probe_phase(card):
+def probe_phase(card, probes_lib):
     """Phase 18: every probe variant through the entry point on the card,
-    against its plain version, timed; returns its records."""
+    against its plain version, timed; returns its records.  ``probes_lib``
+    is the built ``csrc/probes.cu``, whose P1 kernel's occupancy and SASS
+    are reported."""
     import torch
 
     from lightdock_tpu_torch import probes
@@ -1391,6 +1397,7 @@ def probe_phase(card):
                 lib_ms = cuda_ms(lib, 20)
                 lib_note = (f"{lib_ms:.4f} ms (max|diff| from the kernel "
                             f"{float((lib() - out).abs().max()):.3e})")
+            if lib is not None or pid == "P1":
                 # The wrapper called as the PyTorch call is, without the
                 # entry point's Variant between.
                 wrap, kw = getattr(pops, v.op), {k: t[a] for k, a in v.args.items()}
@@ -1416,6 +1423,7 @@ def probe_phase(card):
                          + ("not measured" if us is None else f"{us:.3f} us"))
     say(f"phase 18: [{card}] wrapper beside its one PyTorch call (CUDA events, 20 calls): "
         + "; ".join(parts))
+    p1_report(card, probes_lib, records, dev_us, wrapper_ms, timed)
     say(f"phase 18: {len(records)} probe variants in {time.perf_counter() - t_phase:.1f} s")
     return records
 
@@ -1490,7 +1498,7 @@ def probe_device_times(timed, card, calls=10):
             f"parted {len(dev)} device events into {len(groups)} groups for "
             f"{len(timed)} variants")
         return {}
-    kernels = {"select_reps": ("select_reps_kernel", "sum_rows_kernel", "rep_acc_kernel"),
+    kernels = {"select_reps": ("select_reps_kernel", "rep_sum_kernel"),
                "receptor_loop": ("receptor_loop_kernel",),
                "gather_form": ("gather_form_kernel", "gather_form_reps_kernel")}
     parts, dev_us = [], {}
@@ -1501,11 +1509,124 @@ def probe_device_times(timed, card, calls=10):
         us = sum(e.time_range.elapsed_us() for e in events) / calls
         dev_us[name] = us
         expected = calls * (1 if v.op == "gather_form" else len(names))
+        check(v.op != "select_reps" or len(events) == expected,
+              f"{name}: {len(events)} device kernels in {calls} calls, {expected} expected")
         parts.append(f"{name} {us:.3f} us ({us * 1e3 / v.work:.5f} ns a pair; "
                      f"{len(events)} events, {expected} expected)")
     say(f"phase 18: [{card}] probe device time a call (torch.profiler, {calls} calls "
         "each): " + "; ".join(parts))
     return dev_us
+
+
+def sass_loops(lib_path, pattern):
+    """{template arguments: (instructions of its largest loop, {opcode:
+    count} there)} of each function of the library at ``lib_path`` whose
+    mangled name matches the regular expression ``pattern`` (its groups
+    are the template arguments), from ``cuobjdump -sass``; None where
+    cuobjdump is not found.  A loop is a backward branch; its instructions
+    are those from the branch's target to the branch, NOPs not counted."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return None
+    proc = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"cuobjdump -sass failed: {proc.stderr.strip()[:300]}")
+    found, key, instrs, labels = {}, None, [], {}
+
+    def flush():
+        if key is None:
+            return
+        addr = {a: i for i, (a, _) in enumerate(instrs)}
+        best = (0, 0, -1)
+        for i, (_, text) in enumerate(instrs):
+            m = re.search(r"\bBRA(?:\.\S+)?\s+`?\(?([.\w]+)\)?", text)
+            if not m:
+                continue
+            target = m.group(1)
+            j = labels.get(target, addr.get(int(target, 16) if target.startswith("0x") else -1))
+            if j is not None and j <= i and i - j + 1 > best[0]:
+                best = (i - j + 1, j, i)
+        ops = {}
+        for _, text in instrs[best[1]:best[2] + 1]:
+            op = text.split()[1] if text.startswith("@") else text.split()[0]
+            if op != "NOP":
+                ops[op] = ops.get(op, 0) + 1
+        found[key] = (sum(ops.values()), ops)
+
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            flush()
+            mk = re.search(pattern, m.group(1))
+            key, instrs, labels = (mk.groups() if mk else None), [], {}
+            continue
+        if key is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(instrs)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m:
+            instrs.append((int(m.group(1), 16), m.group(2).strip()))
+    flush()
+    return found
+
+
+def p1_report(card, probes_lib, records, dev_us, wrapper_ms, timed):
+    """Phase 18: each P1 variant's device time a call, its wrapper ms, its
+    bound, the SASS instructions its kernel issues an element-rep (the
+    batch loop's instructions over the batch's 8 reps) and the time that
+    takes at full issue (every SM's four schedulers issuing one 32-lane
+    instruction a cycle at the card's maximum SM clock), its registers,
+    local bytes and resident warps an SM."""
+    import ctypes
+
+    import torch
+
+    from lightdock_tpu_torch.ops import probes as pops
+
+    fn = probes_lib.lib.select_reps_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                          timeout=60)
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    mhz = float(proc.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 4 * 32 * mhz * 1e6   # lane-instructions a second at full issue
+    loops = sass_loops(probes_lib.path, r"select_reps_kernelILb([01])ELi(\d)E")
+    by_name = {rec["name"]: rec for rec in records}
+    parts = []
+    for name, v, t in timed:
+        if v.op != "select_reps":
+            continue
+        bf16, mode = int(v.dtype == torch.bfloat16), pops.SELECT_MODES[v.kwargs["mode"]]
+        blocks, regs, local = (ctypes.c_int() for _ in range(3))
+        err = fn(bf16, mode, ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
+        check(err == 0, f"select_reps_occupancy({bf16}, {mode}): CUDA error {err}")
+        rec = by_name[name]
+        elements = t["d2"].numel() * v.kwargs["reps"]
+        loop = None if loops is None else loops.get((str(bf16), str(mode)))
+        if loop is None:
+            sass = "SASS not measured (no cuobjdump or no loop found)"
+        else:
+            per = loop[0] / 8   # a batch: a thread's 8 reps' terms and one run of 8 added
+            top = sorted(loop[1].items(), key=lambda kv: -kv[1])[:8]
+            sass = (f"{per:.2f} SASS instructions an element-rep ({loop[0]} in the batch "
+                    f"loop: {', '.join(f'{op} {n}' for op, n in top)}), full issue "
+                    f"{per * elements / rate * 1e6:.3f} us")
+        us = dev_us.get(name)
+        parts.append(f"{name} device {'not measured' if us is None else f'{us:.3f} us'}, "
+                     f"wrapper {wrapper_ms[name]:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+                     f"({rec['bound_by']}), {sass}, {regs.value} registers, {local.value} B "
+                     f"local, {blocks.value * 8} resident warps an SM")
+    say(f"phase 18: [{card}] P1 ({sms} SMs at {mhz:.0f} MHz: {rate / 1e12:.2f} T "
+        "lane-instructions/s at full issue): " + "; ".join(parts))
 
 
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
@@ -1665,7 +1786,7 @@ def main() -> int:
     k1_err, k4_err = max(k1_err, err), max(k4_err, err_v1)
 
     # -- 18. the table-selection probes P1-P6 ------------------------------------
-    probe_records = probe_phase(card)
+    probe_records = probe_phase(card, built["probes"])
 
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),

@@ -9,13 +9,37 @@
 // chain, a tournament of selects, a count of the thresholds passed and one
 // indexed load, or the arithmetic slot trunc(2 sqrt(d2) - 1) and one gather.
 //
-//   select_reps_kernel<T, kMode>  (P1) one thread per (p, r, l) element
-//     loops over the reps; per rep each warp reduces its terms in a fixed
-//     tree into shared memory, every 32 reps the 8 warp sums are added in
-//     order into the block's partial row, sum_rows (sum_rows.cuh) adds the
-//     rows in order, and rep_acc_kernel adds the reps in order in the
-//     working type.  Bound by the instruction rate: about 45-65 operations
-//     an element-rep against under 1 MB of inputs.
+//   select_reps_kernel<kBf16, kMode> (P1) one thread an (r, l) element of
+//     one pose, its entries in registers (tak's in shared memory, staged
+//     once a block, as the script keeps them in VMEM).  Bound by issue
+//     slots: an f32 element-rep issues 48-56 instructions, 35-40 of them
+//     the form's (chain: 20 compares and 20 predicated adds; tourn: 20
+//     compares and the compiler's 15 selects, all on the half-rate ALU
+//     pipe; tak: 20 compares, 20 counts kept in float, so that they issue
+//     as predicated FADDs on the FMA pipe (an int count compiled to four
+//     instructions a step), one conversion and one shared load), the rest
+//     the moved d2, the mask and the term's share of the sum, against
+//     under 1 MB of inputs.  bfloat16 tak and tourn select on the widened
+//     values, which compare and select as the bfloat16 ones do.  What the
+//     design does about it:
+//     - many terms in flight: a thread computes a batch of 8 reps' terms
+//       for its element before it adds any; chain16 packs two reps in one
+//       bf16x2 register, so a chain step is one HSET2 (the mask), one HADD2
+//       and one LOP3 (the select) for two terms, each rounded once in
+//       bf16, which equals the float operation rounded to bf16 (24 >= 2 8
+//       + 2); the rep's shift round(round(i) 1e-6) is computed once a rep,
+//       by one thread, a batch ahead, into shared memory;
+//     - a full card: the grid splits the reps into chunks besides the
+//       poses and the 256-element blocks, as many chunks as the card's
+//       resident blocks (queried once a kernel and device) leave room for;
+//     - the (R, L) sum without a shuffle tree a term: the terms go to
+//       shared memory, then warp w adds rep w of the batch: lane l adds the
+//       8 consecutive elements 8l..8l+7 in order from two vector loads, and
+//       only the 32 run sums go through a five-step shuffle tree, one
+//       barrier a batch (two buffers, taken in turn);
+//     - two launches a call: rep_sum_kernel, one block a pose, adds each
+//       rep's block sums in block order, rounds the total to the working
+//       type and adds the reps in order from zero, as the probe's loop does.
 //   receptor_loop_kernel<kMode, kThreads> (P2, P3; the Pallas `kernel` of
 //     exp_gather2d.py and exp_gather32.py) sums each (p, l)'s terms over
 //     the receptor atoms in order.  Bound by issue slots: a pair issues
@@ -59,23 +83,28 @@
 // Numbers follow the JAX probes: d2 and every sum with explicit
 // round-to-nearest intrinsics (no contraction into FMA), sqrtf correctly
 // rounded (no --use_fast_math), the slot cast truncating toward zero before
-// the clip, bfloat16 rounded after every operation (computed in float, as
-// PyTorch and XLA do).  Sums over r and reps run in the probes' order, so
-// the plain versions (ops/probes.py) repeat them bit for bit.
+// the clip, bfloat16 rounded after every operation (as PyTorch and XLA do:
+// P1 rounds each packed operation once, the rest compute in float and
+// round).  Sums over r and reps run in the probes' order, and P1's (R, L)
+// sum in the kernel's own, so the plain versions (ops/probes.py) repeat them
+// bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cstring>
 #include <limits>
-
-#include "sum_rows.cuh"
+#include <type_traits>
 
 namespace {
 
-constexpr int kSelectThreads = 256;
-constexpr int kWarps = kSelectThreads / 32;
-constexpr int kBatch = 32;        // reps between two block reductions
+constexpr int kSelectThreads = 256;   // P1: elements a block, one a thread
+constexpr int kRepBatch = kSelectThreads / 32;   // P1: a thread's reps in flight; warp w adds rep w
+constexpr int kRun = kSelectThreads / 32;        // P1: consecutive elements a lane adds in order
+constexpr int kSelectMinBlocks = 4;  // P1: resident blocks an SM (32 warps) at its registers
+constexpr int kRepSumThreads = 256;   // P1's second kernel: reps a pass
 constexpr int kK = 21;            // P1's table entries
 constexpr int kNSlot = 32;        // slots of the arithmetic binning
 constexpr int kMaxChain = 20;     // thresholds of a chain
@@ -103,121 +132,263 @@ struct Thresholds {
   float v[kMaxChain];
 };
 
-// The working type: values are held in float and rounded to T after every
-// operation.
-template <typename T>
-struct Work;
-template <>
-struct Work<float> {
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-};
-template <>
-struct Work<__nv_bfloat16> {
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
-};
-
 // clip(int32(2 sqrt(d2) - 1), 0, 31): the cast truncates toward zero.
 __device__ __forceinline__ int slot_of(float d2) {
   const float m = __fsub_rn(__fmul_rn(2.0f, sqrtf(d2)), 1.0f);
   return min(max(__float2int_rz(m), 0), kNSlot - 1);
 }
 
+// P1's arguments: the thresholds and the cutoff in the working type (for
+// bfloat16 rounded on the host and widened; chain16 also takes them as
+// bf16x2 pairs {s, s}), the shapes and the rep chunks of the grid.
+struct SelectArgs {
+  float thr[kK - 1];
+  uint32_t thr2[kK - 1];
+  float cutoff2;
+  uint32_t cutoff2_2;
+  int p_count, rl, reps, chunks;
+};
+
 // exp_gather_kernel.py's tourn_body: a tree of selects over t[LO:HI].
 template <int LO, int HI>
-__device__ __forceinline__ float tournament(const float (&t)[kK], const float (&s)[kK - 1],
-                                            float x) {
+__device__ __forceinline__ float tournament(const float (&t)[kK], const SelectArgs& a, float x) {
   if constexpr (HI - LO == 1) {
     return t[LO];
   } else {
     constexpr int MID = (LO + HI) / 2;
-    const float left = tournament<LO, MID>(t, s, x);
-    const float right = tournament<MID, HI>(t, s, x);
-    return x >= s[MID - 1] ? right : left;
+    const float left = tournament<LO, MID>(t, a, x);
+    const float right = tournament<MID, HI>(t, a, x);
+    return x >= a.thr[MID - 1] ? right : left;
   }
 }
 
-// Grid: (R L / 256) blocks per pose, pose-major; partial is
-// (R L / 256, P reps), row = the block within its pose.
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kSelectThreads)
-select_reps_kernel(const T* __restrict__ d2, const T* __restrict__ tab,
-                   float* __restrict__ partial, Thresholds thr, int p_count, int rl,
-                   int reps, float cutoff2) {
-  using W = Work<T>;
-  __shared__ float s_red[kWarps][kBatch];
-  const int blocks_per_pose = rl / kSelectThreads;
-  const int p = blockIdx.x / blocks_per_pose;
-  const int b = blockIdx.x % blocks_per_pose;
-  const int e = b * kSelectThreads + threadIdx.x;   // the (r, l) element
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-  float s[kK - 1];
+// Each half 0xffff where a >= b, else 0 (one HSET2 on sm_90).
+__device__ __forceinline__ uint32_t ge_mask(uint32_t a, uint32_t b) {
+  uint32_t m;
+  asm("set.ge.u32.bf16x2 %0, %1, %2;" : "=r"(m) : "r"(a), "r"(b));
+  return m;
+}
+
+// Rep i's shift round(round(i) 1e-6) in the working type: a float, or the
+// bfloat16 pair of reps i and i + 1 (i in the low half).
+template <bool kBf16>
+__device__ __forceinline__ uint32_t rep_shift(int i) {
+  if constexpr (kBf16) {
+    const float eps = __bfloat162float(__float2bfloat16_rn(1e-6f));
+    uint32_t pair = 0;
 #pragma unroll
-  for (int k = 0; k < kK - 1; ++k) s[k] = W::round(thr.v[k]);
-  float t[kK];   // chain and tourn read every entry; tak loads one a rep
-  if constexpr (kMode != kTak) {
-#pragma unroll
-    for (int k = 0; k < kK; ++k) t[k] = W::load(tab + (size_t)k * rl + e);
+    for (int h = 0; h < 2; ++h) {
+      const float ri = __bfloat162float(__float2bfloat16_rn((float)(i + h)));
+      const __nv_bfloat16 d = __float2bfloat16_rn(__fmul_rn(ri, eps));
+      pair |= (uint32_t)(*reinterpret_cast<const uint16_t*>(&d)) << (16 * h);
+    }
+    return pair;
+  } else {
+    return __float_as_uint(__fmul_rn((float)i, 1e-6f));
   }
-  const float x0 = W::load(d2 + (size_t)p * rl + e);
-  const float eps = W::round(1e-6f);
-  float* part = partial + (size_t)b * p_count * reps + (size_t)p * reps;
+}
 
-  for (int i0 = 0; i0 < reps; i0 += kBatch) {
-    const int n = min(kBatch, reps - i0);
-    for (int j = 0; j < n; ++j) {
-      const float di = W::round(__fmul_rn(W::round((float)(i0 + j)), eps));
-      const float x = W::round(__fadd_rn(x0, di));
-      float sel;
-      if constexpr (kMode == kChain) {
-        sel = t[0];
+// Grid: (rep chunk, pose, element block), the block fastest; partial is
+// (P, R L / 256, reps): each rep's sum over the block's 256 elements.
+// A batch of kRepBatch reps: every thread computes its element's terms of
+// the batch into s_term (chain16: four bf16x2 pairs); after one barrier,
+// warp w adds rep w: lane l the run 8l..8l+7 in order from its first
+// element, then the 32 run sums in a shuffle tree (lane l + off onto lane
+// l).  Reps past the chunk's end are computed and not added.
+template <bool kBf16, int kMode>
+__global__ void __launch_bounds__(kSelectThreads, kSelectMinBlocks)
+select_reps_kernel(const void* __restrict__ d2_, const void* __restrict__ tab_,
+                   float* __restrict__ partial, SelectArgs a) {
+  using Raw = std::conditional_t<kBf16, uint16_t, float>;
+  constexpr bool kPacked = kBf16 && kMode == kChain;
+  constexpr int kShiftWords = kBf16 ? kRepBatch / 2 : kRepBatch;
+  __shared__ __align__(16) float s_term[2][kRepBatch][kSelectThreads];
+  __shared__ __align__(16) uint32_t s_shift[2][kRepBatch];
+  __shared__ float s_tab[kMode == kTak ? kK : 1][kSelectThreads];   // tak's entries, [k][e]
+  const Raw* d2 = static_cast<const Raw*>(d2_);
+  const Raw* tab = static_cast<const Raw*>(tab_);
+  const int nb = a.rl / kSelectThreads;
+  const int b = blockIdx.x % nb;
+  const int p = (blockIdx.x / nb) % a.p_count;
+  const int c = blockIdx.x / (nb * a.p_count);
+  const int i_begin = (int)((long long)c * a.reps / a.chunks);
+  const int i_end = (int)((long long)(c + 1) * a.reps / a.chunks);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e = b * kSelectThreads + tid;
+  float* part = partial + ((size_t)p * nb + b) * a.reps;
+
+  float t[kMode == kChain && !kPacked || kMode == kTourn ? kK : 1];
+  uint32_t t2[kPacked ? kK : 1];   // entry k in both halves
 #pragma unroll
-        for (int k = 0; k < kK - 1; ++k) sel = x >= s[k] ? W::round(__fadd_rn(sel, t[k + 1])) : sel;
-      } else if constexpr (kMode == kTak) {
-        int idx = 0;
+  for (int k = 0; k < kK; ++k) {
+    const Raw v = tab[(size_t)k * a.rl + e];
+    if constexpr (kMode == kTak) {
+      s_tab[k][tid] = widen(v);
+    } else if constexpr (kPacked) {
+      t2[k] = (uint32_t)v * 0x10001u;
+    } else {
+      t[k] = widen(v);
+    }
+  }
+  const Raw x0 = d2[(size_t)p * a.rl + e];
+  if (tid < kShiftWords) s_shift[0][tid] = rep_shift<kBf16>(i_begin + (kBf16 ? 2 : 1) * tid);
+  __syncthreads();
+
+  const int batches = (i_end - i_begin + kRepBatch - 1) / kRepBatch;
+#pragma unroll 1
+  for (int k = 0; k < batches; ++k) {
+    const int buf = k & 1;
+    const int i0 = i_begin + k * kRepBatch;
+    if (tid < kShiftWords) {   // the next batch's shifts
+      s_shift[buf ^ 1][tid] = rep_shift<kBf16>(i0 + kRepBatch + (kBf16 ? 2 : 1) * tid);
+    }
+    uint32_t sh[kRepBatch];
+    {
+      const uint4 lo = *reinterpret_cast<const uint4*>(&s_shift[buf][0]);
+      const uint4 hi = *reinterpret_cast<const uint4*>(&s_shift[buf][4]);
+      sh[0] = lo.x; sh[1] = lo.y; sh[2] = lo.z; sh[3] = lo.w;
+      sh[4] = hi.x; sh[5] = hi.y; sh[6] = hi.z; sh[7] = hi.w;
+    }
+    if constexpr (kPacked) {
+      constexpr int kPairs = kRepBatch / 2;
+      const uint32_t xx = (uint32_t)x0 * 0x10001u;
+      uint32_t x2[kPairs], sel[kPairs];
 #pragma unroll
-        for (int k = 0; k < kK - 1; ++k) idx += x >= s[k] ? 1 : 0;
-        sel = W::load(tab + (size_t)idx * rl + e);
-      } else {
-        sel = tournament<0, kK>(t, s, x);
+      for (int j = 0; j < kPairs; ++j) {
+        x2[j] = bits(__hadd2(bf2(xx), bf2(sh[j])));
+        sel[j] = t2[0];
       }
-      float v = W::round(__fmul_rn(sel, x <= cutoff2 ? 1.0f : 0.0f));
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
-      if (lane == 0) s_red[warp][j] = v;
+      for (int q = 0; q < kK - 1; ++q) {
+#pragma unroll
+        for (int j = 0; j < kPairs; ++j) {
+          const uint32_t m = ge_mask(x2[j], a.thr2[q]);
+          const uint32_t sum = bits(__hadd2(bf2(sel[j]), bf2(t2[q + 1])));
+          sel[j] = (sum & m) | (sel[j] & ~m);
+        }
+      }
+      uint32_t* row = reinterpret_cast<uint32_t*>(&s_term[buf][0][0]);
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        row[j * kSelectThreads + tid] =
+            bits(__hmul2(bf2(sel[j]), __hle2(bf2(x2[j]), bf2(a.cutoff2_2))));
+      }
+    } else {
+      float x[kRepBatch];
+      if constexpr (kBf16) {
+        const uint32_t xx = (uint32_t)x0 * 0x10001u;
+#pragma unroll
+        for (int j = 0; j < kRepBatch / 2; ++j) {
+          const uint32_t x2 = bits(__hadd2(bf2(xx), bf2(sh[j])));
+          x[2 * j] = __uint_as_float(x2 << 16);
+          x[2 * j + 1] = __uint_as_float(x2 & 0xffff0000u);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRepBatch; ++j) x[j] = __fadd_rn(widen(x0), __uint_as_float(sh[j]));
+      }
+      float sel[kRepBatch];
+      if constexpr (kMode == kChain) {
+#pragma unroll
+        for (int j = 0; j < kRepBatch; ++j) sel[j] = t[0];
+#pragma unroll
+        for (int q = 0; q < kK - 1; ++q) {
+#pragma unroll
+          for (int j = 0; j < kRepBatch; ++j) {
+            sel[j] = x[j] >= a.thr[q] ? __fadd_rn(sel[j], t[q + 1]) : sel[j];
+          }
+        }
+      } else if constexpr (kMode == kTak) {
+        float cnt[kRepBatch];   // the count in float: a predicated FADD a step
+#pragma unroll
+        for (int j = 0; j < kRepBatch; ++j) cnt[j] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < kK - 1; ++q) {
+#pragma unroll
+          for (int j = 0; j < kRepBatch; ++j) {
+            cnt[j] = x[j] >= a.thr[q] ? __fadd_rn(cnt[j], 1.0f) : cnt[j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kRepBatch; ++j) sel[j] = s_tab[__float2int_rz(cnt[j])][tid];
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRepBatch; ++j) sel[j] = tournament<0, kK>(t, a, x[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kRepBatch; ++j) {
+        s_term[buf][j][tid] = __fmul_rn(sel[j], x[j] <= a.cutoff2 ? 1.0f : 0.0f);
+      }
     }
     __syncthreads();
-    if (threadIdx.x < n) {
-      float sum = 0.0f;
+    if (i0 + warp < i_end) {   // warp w adds rep i0 + w
+      float v[kRun];
+      if constexpr (kPacked) {
+        const uint4* run = reinterpret_cast<const uint4*>(&s_term[buf][warp >> 1][lane * kRun]);
+        const uint4 q0 = run[0], q1 = run[1];
+        const uint32_t w[kRun] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum = __fadd_rn(sum, s_red[w][threadIdx.x]);
-      part[i0 + threadIdx.x] = sum;
+        for (int j = 0; j < kRun; ++j) {
+          v[j] = __uint_as_float(warp & 1 ? w[j] & 0xffff0000u : w[j] << 16);
+        }
+      } else {
+        const float4* run = reinterpret_cast<const float4*>(&s_term[buf][warp][lane * kRun]);
+        const float4 q0 = run[0], q1 = run[1];
+        v[0] = q0.x; v[1] = q0.y; v[2] = q0.z; v[3] = q0.w;
+        v[4] = q1.x; v[5] = q1.y; v[6] = q1.z; v[7] = q1.w;
+      }
+      float r = v[0];
+#pragma unroll
+      for (int j = 1; j < kRun; ++j) r = __fadd_rn(r, v[j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        r = __fadd_rn(r, __shfl_down_sync(0xffffffffu, r, off));
+      }
+      if (lane == 0) part[i0 + warp] = r;
     }
-    __syncthreads();
   }
 }
 
-// out[p] = the reps' totals of pose p added in order in the working type.
-template <typename T>
-__global__ void rep_acc_kernel(const float* __restrict__ totals, T* __restrict__ out,
-                               int p_count, int reps) {
-  using W = Work<T>;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= p_count) return;
-  float acc = 0.0f;
-  for (int i = 0; i < reps; ++i) {
-    acc = W::round(__fadd_rn(acc, W::round(totals[(size_t)p * reps + i])));
+// out[p]: each rep's block sums of pose p added in block order, the total
+// rounded to the working type, the reps added in order from zero in it.
+// One block a pose; kRepSumThreads reps a pass.
+template <bool kBf16>
+__global__ void __launch_bounds__(kRepSumThreads)
+rep_sum_kernel(const float* __restrict__ partial, void* __restrict__ out_, int nb, int reps) {
+  using T = std::conditional_t<kBf16, __nv_bfloat16, float>;
+  __shared__ float s_tot[kRepSumThreads];   // the totals, rounded to the working type
+  const float* part = partial + (size_t)blockIdx.x * nb * reps;
+  T acc = T(0.0f);
+  for (int i0 = 0; i0 < reps; i0 += kRepSumThreads) {
+    const int i = i0 + threadIdx.x;
+    if (i < reps) {
+      float tot = part[i];
+      for (int b = 1; b < nb; ++b) tot = __fadd_rn(tot, part[(size_t)b * reps + i]);
+      s_tot[threadIdx.x] = kBf16 ? __bfloat162float(__float2bfloat16_rn(tot)) : tot;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {   // one bf16 add rounds once, as the float add rounded to bf16
+      const int n = min(kRepSumThreads, reps - i0);
+      for (int j = 0; j < n; ++j) {
+        if constexpr (kBf16) {
+          acc = __hadd(acc, __float2bfloat16_rn(s_tot[j]));
+        } else {
+          acc = __fadd_rn(acc, s_tot[j]);
+        }
+      }
+    }
+    __syncthreads();
   }
-  out[p] = W::store(acc);
+  if (threadIdx.x == 0) static_cast<T*>(out_)[blockIdx.x] = acc;
 }
 
 // A block takes a tile of kTileP poses x kTileL ligand atoms (kTileE
@@ -461,30 +632,6 @@ Thresholds fill(const float* thresholds, int n) {
   return thr;
 }
 
-template <typename T, int kMode>
-int launch_select(const void* d2, const void* tab, float* partial, const Thresholds& thr,
-                  int p_count, int rl, int reps, float cutoff2, cudaStream_t s) {
-  select_reps_kernel<T, kMode><<<p_count * (rl / kSelectThreads), kSelectThreads, 0, s>>>(
-      static_cast<const T*>(d2), static_cast<const T*>(tab), partial, thr, p_count, rl, reps,
-      cutoff2);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int select_all(int mode, const void* d2, const void* tab, float* partial, float* totals,
-               void* out, const Thresholds& thr, int p_count, int rl, int reps, float cutoff2,
-               cudaStream_t s) {
-  int err = mode == kChain  ? launch_select<T, kChain>(d2, tab, partial, thr, p_count, rl, reps, cutoff2, s)
-            : mode == kTak  ? launch_select<T, kTak>(d2, tab, partial, thr, p_count, rl, reps, cutoff2, s)
-                            : launch_select<T, kTourn>(d2, tab, partial, thr, p_count, rl, reps, cutoff2, s);
-  if (err != 0) return err;
-  err = sum_rows(partial, nullptr, totals, rl / kSelectThreads, p_count * reps, s);
-  if (err != 0) return err;
-  rep_acc_kernel<T><<<(p_count + 127) / 128, 128, 0, s>>>(totals, static_cast<T*>(out),
-                                                          p_count, reps);
-  return (int)cudaGetLastError();
-}
-
 // The SM count of device dev, queried once a device; 0 on an error.
 int sm_count(int dev) {
   static int counts[kMaxDevices] = {};
@@ -493,6 +640,72 @@ int sm_count(int dev) {
     counts[dev] = 0;
   }
   return counts[dev];
+}
+
+const void* select_kernel(int bf16, int mode) {
+  if (bf16) {
+    return mode == kChain ? (const void*)select_reps_kernel<true, kChain>
+           : mode == kTak ? (const void*)select_reps_kernel<true, kTak>
+                          : (const void*)select_reps_kernel<true, kTourn>;
+  }
+  return mode == kChain ? (const void*)select_reps_kernel<false, kChain>
+         : mode == kTak ? (const void*)select_reps_kernel<false, kTak>
+                        : (const void*)select_reps_kernel<false, kTourn>;
+}
+
+// Resident blocks an SM of P1's kernel (bf16, mode) on device dev, queried
+// once a kernel and device; 0 on an error.
+int select_resident(int bf16, int mode, int dev) {
+  static int resident[2][3][kMaxDevices] = {};
+  int& n = resident[bf16][mode][dev];
+  if (n == 0 && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &n, select_kernel(bf16, mode), kSelectThreads, 0) != cudaSuccess) {
+    n = 0;
+  }
+  return n;
+}
+
+// P1's two launches.  The reps split into as many chunks as the card's
+// resident blocks hold beside the P (R L / 256) element blocks (at least
+// one, at most one a batch of reps).
+int launch_select(const void* d2, const void* tab, float* partial, void* out, SelectArgs a,
+                  int bf16, int mode, cudaStream_t s) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int sms = sm_count(dev), resident = select_resident(bf16, mode, dev);
+  if (sms == 0 || resident == 0) return (int)cudaErrorInvalidDevice;
+  const int nb = a.rl / kSelectThreads;
+  const long long units = (long long)a.p_count * nb;
+  const long long room = (long long)sms * resident / units;
+  a.chunks = (int)std::max(1LL, std::min<long long>((a.reps + kRepBatch - 1) / kRepBatch, room));
+  void* args[] = {(void*)&d2, (void*)&tab, (void*)&partial, (void*)&a};
+  const cudaError_t err = cudaLaunchKernel(select_kernel(bf16, mode),
+                                           dim3((unsigned)(units * a.chunks)),
+                                           dim3(kSelectThreads), args, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  if (bf16) {
+    rep_sum_kernel<true><<<a.p_count, kRepSumThreads, 0, s>>>(partial, out, nb, a.reps);
+  } else {
+    rep_sum_kernel<false><<<a.p_count, kRepSumThreads, 0, s>>>(partial, out, nb, a.reps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// A float rounded to bfloat16 (to nearest, ties to even) as its bits.
+uint16_t bf16_bits(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (uint16_t)((u >> 16) | 0x40u);   // NaN, quiet
+  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+float bf16_float(uint16_t h) {
+  const uint32_t u = (uint32_t)h << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
 }
 
 template <int kMode, int kThreads>
@@ -558,23 +771,44 @@ int launch_form(const FormArgs& a, const Thresholds& thr, cudaStream_t s) {
 
 }  // namespace
 
-// P1: select_reps; 0 or a CUDA error code.
-extern "C" int select_reps_launch(const void* d2, const void* tab, void* partial, void* totals,
-                                  void* out, int p_count, int rl, int reps, int mode, int bf16,
+// P1: select_reps; 0 or a CUDA error code.  partial holds P (R L / 256)
+// reps floats.
+extern "C" int select_reps_launch(const void* d2, const void* tab, void* partial, void* out,
+                                  int p_count, int rl, int reps, int mode, int bf16,
                                   int n_thr, const float* thresholds, float cutoff2,
                                   void* stream) {
   if (p_count < 1 || rl < kSelectThreads || rl % kSelectThreads != 0 || reps < 1 ||
       n_thr != kK - 1 || mode < kChain || mode > kTourn) {
     return (int)cudaErrorInvalidValue;
   }
-  const Thresholds thr = fill(thresholds, n_thr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  float* tot = static_cast<float*>(totals);
-  return bf16 ? select_all<__nv_bfloat16>(mode, d2, tab, part, tot, out, thr, p_count, rl, reps,
-                                          cutoff2, s)
-              : select_all<float>(mode, d2, tab, part, tot, out, thr, p_count, rl, reps,
-                                  cutoff2, s);
+  SelectArgs a{};
+  for (int k = 0; k < kK - 1; ++k) {
+    const uint16_t h = bf16_bits(thresholds[k]);
+    a.thr[k] = bf16 ? bf16_float(h) : thresholds[k];
+    a.thr2[k] = (uint32_t)h * 0x10001u;
+  }
+  const uint16_t hc = bf16_bits(cutoff2);
+  a.cutoff2 = bf16 ? bf16_float(hc) : cutoff2;
+  a.cutoff2_2 = (uint32_t)hc * 0x10001u;
+  a.p_count = p_count;
+  a.rl = rl;
+  a.reps = reps;
+  return launch_select(d2, tab, static_cast<float*>(partial), out, a, bf16 != 0, mode,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// P1's kernel (bf16, mode): its resident blocks an SM, registers and local
+// (stack and spill) bytes a thread; 0 or a CUDA error code.
+extern "C" int select_reps_occupancy(int bf16, int mode, int* blocks, int* regs, int* local) {
+  if (mode < kChain || mode > kTourn) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, select_kernel(bf16 != 0, mode));
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, select_kernel(bf16 != 0, mode),
+                                                    kSelectThreads, 0);
+  *regs = attr.numRegs;
+  *local = (int)attr.localSizeBytes;
+  return (int)e;
 }
 
 // P2, P3: receptor_loop; 0 or a CUDA error code.

@@ -18,8 +18,14 @@ Every variant computes what its JAX probe computes, rounding where it
 rounds (bfloat16 at every operation of P1's chain16), and sums in the
 probe's order where that order is sequential (over r or reps).  Where the
 probe sums in an order of XLA's own (P1's (R, L) sum), the kernel's order
-is fixed (a tree within a warp, warps and blocks in order) and the plain
-version repeats it, so the two are bit-equal.
+is fixed and the plain version repeats it, so the two are bit-equal: each
+256-element block's terms in runs of 8 consecutive elements, each run
+added in order from its first element; the block's 32 run sums in a
+halving tree (run j + run j + h onto run j, h = 16, 8, 4, 2, 1); the
+blocks' sums in order from the first.  The kernel computes a batch of 8
+reps' terms a thread (chain16 two reps to a bf16x2 register), puts them
+in shared memory, and one warp a rep adds them in that order; its second
+launch adds the blocks and the reps.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises; any other device raises.  There is no
@@ -39,8 +45,9 @@ from . import _build
 NSLOT = C.DFIRE_EFFECTIVE_BINS   # slots of the arithmetic binning (0.5 A)
 CUTOFF2 = C.DFIRE_DIST_CUTOFF2   # the probes' d2 mask
 SELECT_K = 21                    # P1's table entries (20 thresholds)
-SELECT_THREADS = 256             # select_reps: threads a block, 8 warps
-WARP = 32
+SELECT_THREADS = 256             # select_reps: elements a block, one a thread
+WARP = 32                        # select_reps: run sums a block, in a halving tree
+RUN = SELECT_THREADS // WARP     # select_reps: consecutive elements added in order
 MAX_CHAIN = 20                   # thresholds of the P2-P6 chains
 REP_CHUNK = 32                   # reps per step of select_reps_plain
 ROW_CHUNK = 64                   # receptor atoms per step of receptor_loop_plain
@@ -123,10 +130,11 @@ def _check_select(d2, tab, thresholds, mode, reps):
 
 
 def select_reps_plain(d2, tab, thresholds, mode: str, reps: int):
-    """Plain version of :func:`select_reps`, the kernel's order repeated:
-    each rep's terms summed over 32 lanes in a halving tree, then 8 warps
-    and the (R L / 256) blocks in order, then the reps in order in the
-    working type.  Any device."""
+    """Plain version of :func:`select_reps`, the kernel's order repeated
+    (module docstring): each rep's terms of a 256-element block added in
+    runs of 8 consecutive elements, the 32 run sums in a halving tree, the
+    blocks in order; then the reps in order in the working type.  Any
+    device."""
     _check_select(d2, tab, thresholds, mode, reps)
     dt = d2.dtype
     p, r, l = d2.shape
@@ -146,18 +154,17 @@ def select_reps_plain(d2, tab, thresholds, mode: str, reps: int):
             sel = torch.gather(tab, 0, idx.reshape(-1, r * l)).reshape(x.shape)
         else:
             sel = _tournament(x, tab, thr, 0, SELECT_K)
-        v = (sel * (x <= CUTOFF2).to(dt)).float().reshape(
-            x.shape[0], p, nb, SELECT_THREADS // WARP, WARP)
+        v = (sel * (x <= CUTOFF2).to(dt)).float().reshape(x.shape[0], p, nb, WARP, RUN)
+        run = v[..., 0]
+        for k in range(1, RUN):
+            run = run + v[..., k]
         h = WARP // 2
         while h:
-            v = v[..., :h] + v[..., h:2 * h]
+            run = run[..., :h] + run[..., h:2 * h]
             h //= 2
-        warps = v[..., 0]                                              # (c, P, nb, 8)
-        block = torch.zeros(warps.shape[:3], dtype=torch.float32, device=d2.device)
-        for w in range(warps.shape[3]):
-            block = block + warps[..., w]
-        tot = torch.zeros(block.shape[:2], dtype=torch.float32, device=d2.device)
-        for b in range(nb):
+        block = run[..., 0]                                            # (c, P, nb)
+        tot = block[..., 0]
+        for b in range(1, nb):
             tot = tot + block[..., b]
         totals.extend(tot.unbind(0))
     acc = torch.zeros(p, dtype=dt, device=d2.device)
@@ -297,7 +304,7 @@ def _lib():
         f = ctypes.c_float
         lib.select_reps_launch.restype = ctypes.c_int
         lib.select_reps_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.POINTER(f), f,
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.POINTER(f), f,
                                                           ctypes.c_void_p])
         lib.receptor_loop_launch.restype = ctypes.c_int
         lib.receptor_loop_launch.argtypes = (
@@ -367,16 +374,18 @@ def select_reps(d2, tab, thresholds, mode: str, reps: int):
     def launch():
         _check_select(d2, tab, thresholds, mode, reps)
         p, r, l = d2.shape
-        nb = r * l // SELECT_THREADS
         x, t = d2.contiguous(), tab.contiguous()
-        partial = torch.empty((nb, p * reps), dtype=torch.float32, device=d2.device)
-        totals = torch.empty(p * reps, dtype=torch.float32, device=d2.device)
-        out = torch.empty((p, 1, 1), dtype=d2.dtype, device=d2.device)
+        # One allocation: the output's P floats, then the (P, R L / 256,
+        # reps) block sums.  The output is a view of its first P elements.
+        ws = torch.empty(p + p * (r * l // SELECT_THREADS) * reps, dtype=torch.float32,
+                         device=d2.device)
+        out = (ws if d2.dtype == torch.float32 else ws.view(d2.dtype)).as_strided(
+            (p, 1, 1), (1, 1, 1))
         thr = threshold_array(tuple(thresholds))
         _run("select_reps", d2.get_device(), lambda s: _lib().select_reps_launch(
-            x.data_ptr(), t.data_ptr(), partial.data_ptr(), totals.data_ptr(),
-            out.data_ptr(), p, r * l, reps, SELECT_MODES[mode],
-            int(d2.dtype == torch.bfloat16), len(thresholds), thr, CUTOFF2, s))
+            x.data_ptr(), t.data_ptr(), ws.data_ptr() + 4 * p, out.data_ptr(), p, r * l, reps,
+            SELECT_MODES[mode], int(d2.dtype == torch.bfloat16), len(thresholds), thr,
+            CUTOFF2, s))
         select_reps.launches += 1
         return out
 

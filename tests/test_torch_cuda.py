@@ -406,6 +406,60 @@ def test_probe_kernels_match_plain(cuda, probe):
         assert torch.equal(v(t), out), v.name
 
 
+def _select_case(variant, p, reps, d2, tab):
+    """select_reps on the card against its plain version, bit for bit; one
+    counted launch a call; two launches bit-equal.  Returns the output."""
+    mode = "chain" if variant == "chain16" else variant
+    thr = probes.load("P1").THRESH
+    before = ops_probes.select_reps.launches
+    out = ops_probes.select_reps(d2, tab, thr, mode, reps)
+    torch.cuda.synchronize()
+    assert ops_probes.select_reps.launches == before + 1
+    ref = ops_probes.select_reps_plain(d2, tab, thr, mode, reps)
+    assert out.shape == (p, 1, 1) and out.dtype == d2.dtype
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+    assert torch.equal(ops_probes.select_reps(d2, tab, thr, mode, reps), out)
+    return out
+
+
+@pytest.mark.parametrize("reps", [1, 31, 33, 400])
+@pytest.mark.parametrize("rl", [256, 768, 8192])
+@pytest.mark.parametrize("p", [1, 3, 8])
+@pytest.mark.parametrize("variant", ["chain", "tak", "tourn", "chain16"])
+def test_select_reps_ragged(cuda, variant, p, rl, reps):
+    """P1's kernel bit-equal to its plain version at ragged shapes: one to
+    32 element blocks of 256 (R L = 256, 768, 8,192), 1, 3 and 8 poses, and
+    reps that leave a ragged batch of 8 (1, 31, 33) or split into chunks
+    over the grid (400), for the three f32 forms and chain16 (bfloat16,
+    two reps a bf16x2 register); d2 and tab as P1's inputs draw them."""
+    arrays = probes.load("P1").inputs((rl + p, reps), P=p, R=rl // 256, L=256)
+    dt = torch.bfloat16 if variant == "chain16" else torch.float32
+    d2, tab = (torch.as_tensor(arrays[k], dtype=torch.float32).to(device=cuda, dtype=dt)
+               for k in ("d2", "tab"))
+    _select_case(variant, p, reps, d2, tab)
+
+
+def test_select_reps_chain16_subnormals(cuda):
+    """chain16 on a table of bfloat16 subnormals and zeros of both signs,
+    with d2 holding some zeros and subnormals too: every packed add,
+    compare, select and mask multiply meets them, and the output, a sum of
+    subnormals, is nonzero only where none is flushed.  Bit-equal to plain.
+    (A zero term's sign cannot reach the output: the rep sum starts from
+    +0.)"""
+    rng = np.random.RandomState(5)
+    p, reps = 3, 33
+    sub = np.concatenate([np.arange(0x0000, 0x0080), np.arange(0x8000, 0x8080)])
+    tab = rng.choice(sub, (21, 3, 256)).astype(np.int16)
+    d2 = torch.as_tensor(rng.uniform(0, 400, (p, 3, 256)), dtype=torch.float32).to(torch.bfloat16)
+    tiny = rng.rand(p, 3, 256) < 0.125
+    d2.view(torch.int16)[torch.as_tensor(tiny)] = torch.as_tensor(
+        rng.choice(sub, int(tiny.sum())).astype(np.int16))
+    tab = torch.as_tensor(tab).view(torch.bfloat16)
+    out = _select_case("chain16", p, reps, d2.to(cuda), tab.to(cuda))
+    assert (out.float().abs() > 0).all() and (out.float().abs() < 2.0 ** -100).all()
+
+
 @pytest.mark.parametrize("span", [20.0, 6.0])
 @pytest.mark.parametrize("p", [1, 3, 128])
 @pytest.mark.parametrize("r", [1, 17, 1633])

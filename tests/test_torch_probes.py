@@ -15,10 +15,12 @@ bit.
 
 Tolerances: bit-equal wherever the two sum in one order (every variant of
 P2-P6: the loops over r and reps run in order on both sides).  P1's
-float32 variants sum (R, L) in XLA's order against the port's fixed tree:
-rtol 1e-6 (measured 4.6e-7).  P1's chain16 rounds each rep's float32 sum
-to bfloat16 on both sides: one bfloat16 ulp, rtol 2^-8 (measured 0, at
-3 reps and at 300, where i > 256 is inexact in bfloat16).
+float32 variants sum (R, L) in XLA's order against the port's fixed order
+(runs of 8 elements in order, a tree over a block's 32 runs, the blocks
+in order): rtol 1e-6 (measured 3.1e-7 at 3 reps, 5.9e-7 at 33 reps and
+R L = 512).  P1's chain16 rounds each rep's float32 sum to bfloat16 on
+both sides: one bfloat16 ulp, rtol 2^-8 (measured 0, at 3, 33 and 300
+reps, where i > 256 is inexact in bfloat16).
 """
 
 import functools
@@ -223,6 +225,93 @@ def test_receptor_loop_plain_matches_script_kernel_compact(probe, name):
     for key, x in (("lig", lig), ("rec", rec), ("tab", tab)):
         assert np.array_equal(t[key].numpy(), x), key
     np.testing.assert_array_equal(v(t).numpy(), ref)
+
+
+def _f32_sum_orders(terms):
+    """One rep's f32 sum of ``terms`` (R L,) in three orders: the kernel's
+    (``ops.probes`` docstring: runs of 8 in order, the 32 run sums of a
+    256-element block in a halving tree, the blocks in order), one serial
+    pass, and a halving tree over all the terms."""
+    v = terms.astype(np.float32)
+    run = v.reshape(-1, ops.WARP, ops.RUN)
+    acc = run[..., 0]
+    for k in range(1, ops.RUN):
+        acc = acc + run[..., k]
+    h = ops.WARP // 2
+    while h:
+        acc = acc[:, :h] + acc[:, h:2 * h]
+        h //= 2
+    kernel = acc[0, 0]
+    for b in range(1, acc.shape[0]):
+        kernel = np.float32(kernel + acc[b, 0])
+    serial = v[0]
+    for x in v[1:]:
+        serial = np.float32(serial + x)
+    tree = v
+    while tree.size > 1:
+        tree = tree[:tree.size // 2] + tree[tree.size // 2:]
+    return kernel, serial, tree[0]
+
+
+@pytest.mark.parametrize("variant", ["chain", "tak", "tourn", "chain16"])
+def test_select_reps_plain_order(variant):
+    """``select_reps_plain`` sums each rep's (R, L) terms in the kernel's
+    documented order, exactly.  At P = 1, R L = 512 (two blocks) and d2 = 0,
+    every rep's x = i 1e-6 lies below the first threshold, so every form
+    selects tab[0] and the terms are tab[0] itself: values from {+-2^24, 1,
+    2, 3} (seed 4), for which the kernel's order, a serial pass and a
+    halving tree give three different f32 sums (608, 422, 592; in bfloat16
+    608, 424, 592).  Two reps: the output is the rounded sum added twice
+    from zero in the working type."""
+    mod = probes.load("P1")
+    dt = torch.bfloat16 if variant == "chain16" else torch.float32
+    terms = np.random.RandomState(4).choice([2.0 ** 24, -2.0 ** 24, 1.0, 2.0, 3.0], 512)
+    kernel, serial, tree = _f32_sum_orders(terms)
+    rounded = [float(torch.tensor(float(x)).to(dt)) for x in (kernel, serial, tree)]
+    assert len(set(rounded)) == 3, rounded
+    tab = torch.as_tensor(np.random.RandomState(5).randn(21, 2, 256), dtype=torch.float32)
+    tab[0] = torch.as_tensor(terms.reshape(2, 256), dtype=torch.float32)
+    d2 = torch.zeros((1, 2, 256))
+    assert mod.THRESH[0] > 1e-6
+    got = ops.select_reps_plain(d2.to(dt), tab.to(dt), mod.THRESH,
+                                "chain" if variant == "chain16" else variant, 2)
+    once = torch.tensor(float(kernel)).to(dt)
+    expect = (torch.zeros((), dtype=dt) + once) + once
+    assert got.shape == (1, 1, 1) and got.dtype == dt
+    assert torch.equal(got.reshape(()), expect), (float(got), rounded)
+
+
+@pytest.mark.parametrize("reps", [1, 33])
+@pytest.mark.parametrize("variant", NAMES["P1"])
+def test_select_reps_plain_matches_script_kernel(variant, reps):
+    """``select_reps_plain`` against the script's own Pallas kernel
+    (``mk_kernel`` of its body, with the script's BlockSpecs) run in
+    interpret mode, at (P, R, L) = (2, 2, 256), R L = 512, and 1 or 33
+    reps (33: past one batch of 8 and a run of 32), at the module
+    docstring's tolerances."""
+    path = list(sys.path)
+    with pytest.MonkeyPatch.context() as mp:
+        _quiet_scripts(mp)
+        script = _load_script("exp_gather_kernel")
+    assert sys.path == path
+    script.REPS = reps   # the kernel's loop reads the module's REPS
+    mod = probes.load("P1")
+    arrays = mod.inputs(P=2, R=2, L=256)
+    (v,) = [v for v in mod.variants(arrays, reps=reps) if v.name == variant]
+    t = v.tensors(arrays, "cpu")
+    jdt = jax.numpy.bfloat16 if v.dtype == torch.bfloat16 else jax.numpy.float32
+    body = {"chain": script.chain_body, "tak": script.tak_body, "tourn": script.tourn_body,
+            "chain16": script.chain_body}[variant]
+    call = pl.pallas_call(script.mk_kernel(body), interpret=True,
+                          out_shape=jax.ShapeDtypeStruct((2, 1, 1), jdt),
+                          in_specs=[pl.BlockSpec(memory_space=script.pltpu.VMEM)] * 2,
+                          out_specs=pl.BlockSpec(memory_space=script.pltpu.VMEM))
+    ref = np.asarray(call(*(jax.numpy.asarray(t[k].float().numpy(), jdt)
+                            for k in ("d2", "tab")))).astype(np.float32)
+    got = v(t)
+    assert got.shape == ref.shape and got.dtype == v.dtype
+    rtol = 2.0 ** -8 if variant == "chain16" else 1e-6
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol, atol=0)
 
 
 def test_p1_tak_equals_tourn_not_chain():
