@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels from ``lightdock_tpu_torch/csrc`` with nvcc (one
 process per source, all at once), then drives five paths and a farm, each
-on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
+on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed,
+and the command line on the files of such complexes:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernel build times with ptxas' registers and spills, and
@@ -137,7 +138,34 @@ on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed:
     beside that call's and its device time, and for each P1 variant its
     device time, wrapper ms, bound, the SASS instructions its kernel
     issues an element-rep (``cuobjdump -sass``) with their time at full
-    issue, its registers and resident warps an SM.
+    issue, its registers and resident warps an SM;
+19. drives the command line, ``lightdock_tpu_torch.cli.main`` in-process
+    in a temporary working directory, on the files ``standin.write_complex``
+    writes for the 1ppe-shaped DFIRE complex (PDB files, setup.json, one
+    positions file of 200 glowworms): ``setup.json initial_positions_0.dat
+    100 dfire --metrics FILE``: exit 0, 100 K1 launches and no other
+    kernel's, the snapshots with their sidecars, finite scores, the metrics'
+    segments and summary; the step-1 scores against a ``GsoTorchRunner``
+    built from ``load_simulation`` on the same files (5e-5), whether
+    gso_100.out is byte-identical to the runner's; the CLI's poses/s (its
+    ``--metrics`` summary) beside the runner's (min of 5, reset before
+    each), and what ``load_simulation`` and ``batch_params`` cost once a
+    run;
+20. drives the rest of the command line the same way: ``dna`` on the
+    1azp-shaped files with 10 + 10 ANM modes for 30 steps (one K3 launch a
+    step, 27 pose columns), and for 10 steps with ``--energy-mode
+    kernel_v1`` (one K5 launch a step); the multi-swarm glob of 32 positions files of
+    the 1ppe-shaped complex for 20 steps, then to 30 with ``--resume auto``
+    (one K1 launch a step: 20, then 10; 32 swarm directories; the gso_30
+    scores against an uninterrupted 30-step run, 5e-5, and whether the
+    text is byte-identical); ``--energy-mode kernel_v1`` for 10 steps (one
+    K4 launch a step); ``--resume swarm_0/gso_10.out --resume-step 10``
+    with that sidecar deleted (the text path; 10 K1 launches), the state
+    it reads held against the sidecar's to the text's decimals, and its
+    gso_20 scores beside the same resume from the sidecar's (printed, with
+    the step at which the two trajectories part); ``--profile``
+    for 10 steps (the trace written); and ``python -m
+    lightdock_tpu_torch.cli ... 10 dfire`` in a process of its own (exit 0).
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its f32 operations over
@@ -154,10 +182,14 @@ lists the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -180,6 +212,9 @@ PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 134e12
 # product and mask and the term add, and the accumulate.
 FLOPS_DFIRE, FLOPS_EV_NEAR, FLOPS_EV_FAR = 9, 22, 13
 FARM_SWARMS, FARM_V1_SWARMS, FARM_SINGLE_STEPS = 32, 4, 10
+# Depths of the command-line runs of phase 20: the DNA + ANM run, the
+# multi-swarm glob before and after --resume auto, and the short runs.
+CLI_DNA_STEPS, CLI_FARM_STEPS, CLI_RESUMED_STEPS, CLI_SHORT_STEPS = 30, 20, 30, 10
 # Absolute floor on raw DFIRE sums where a call holds thousands of poses
 # (phases 16-17): among 6,400 poses some sums nearly cancel, and there two
 # f32 orders of the same ~56k pair terms part by a few ulps of the partial
@@ -424,8 +459,7 @@ def drive(path, counters, phase, steps=STEPS):
         snaps = {p.name for p in pathlib.Path(out_dir).glob("gso_*.out")}
         with np.load(pathlib.Path(out_dir) / "gso_1.out.npz") as sidecar:
             step1 = sidecar["scoring"]
-        line = (pathlib.Path(out_dir) / f"gso_{steps}.out").read_text().splitlines()[1]
-        cols = len(line[line.index("(") + 1:line.index(")")].split(","))
+        cols = snapshot_columns(pathlib.Path(out_dir) / f"gso_{steps}.out")
     ours = launches[path.kernel.__name__]
     say(f"phase {phase}: {path.label}: {steps} steps in {run_s:.3f} s (first run, "
         f"with snapshots); kernel launches {launches}; snapshots {len(snaps)} "
@@ -1629,6 +1663,328 @@ def p1_report(card, probes_lib, records, dev_us, wrapper_ms, timed):
         "lane-instructions/s at full issue): " + "; ".join(parts))
 
 
+@contextlib.contextmanager
+def working_directory(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def cli_run(counters, work, argv):
+    """``lightdock_tpu_torch.cli.main(argv)`` in the working directory
+    ``work``, every kernel count set to 0 just before and read just after;
+    its standard output kept.  Returns (launches, seconds, output)."""
+    import torch
+
+    from lightdock_tpu_torch import cli
+
+    out = io.StringIO()
+    with working_directory(work):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+    check(rc == 0, f"lightdock-tpu-torch {' '.join(map(str, argv))}: exit {rc}")
+    return launches, seconds, out.getvalue()
+
+
+def only(launches, name, n, label):
+    """``n`` launches of kernel ``name`` and none of another."""
+    check(launches[name] == n and sum(launches.values()) == n,
+          f"{label}: kernel launches {launches}, expected {n} of {name} and no other")
+
+
+def sidecar_scores(swarm_dir, step):
+    import numpy as np
+    with np.load(pathlib.Path(swarm_dir) / f"gso_{step}.out.npz") as z:
+        return z["scoring"]
+
+
+def snapshot_columns(path) -> int:
+    line = pathlib.Path(path).read_text().splitlines()[1]
+    return len(line[line.index("(") + 1:line.index(")")].split(","))
+
+
+def text_resume_divergence(setup, pos, text_dir, sidecar_dir):
+    """Phase 20's text resume against the resume from the sidecar, on the
+    card: the state ``GsoTorchRunner.load_snapshot`` reads from
+    ``text_dir``'s gso_10.out (no sidecar) against the sidecar's arrays in
+    ``sidecar_dir``, each field within half its last written decimal (7
+    for poses, 8 for luciferin and scores, 3 for vision) and one float32
+    rounding; then both states stepped to 20 one step at a time.  Returns
+    (held, max|diff| a field, per step (poses with |dscore| > ATOL,
+    max|dscore|, poses with |dt| > 1e-4))."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch.engine.runner import GsoTorchRunner
+    from lightdock_tpu_torch.simulation import load_simulation
+
+    snap = f"swarm_0/gso_{CLI_SHORT_STEPS}.out"
+    with working_directory(text_dir):
+        sim = load_simulation(setup, pos, "dfire")
+    params = sim.batch_params(np.float32)
+    runners = []
+    for resume_dir, step in ((text_dir, CLI_SHORT_STEPS), (sidecar_dir, None)):
+        r = GsoTorchRunner(params, sim.positions, sim.seed, sim.use_anm, sim.setup.anm_rec,
+                           sim.setup.anm_lig, dtype=torch.float32, device="cuda")
+        r.load_snapshot(resume_dir / snap, step)
+        runners.append(r)
+    text, side = runners
+    decimals = {"t": 7, "q": 7, "a_rec": 7, "a_lig": 7, "luciferin": 8, "vision": 3,
+                "scoring": 8}
+    held, loaded = True, {}
+    for name, d in decimals.items():
+        a = getattr(text.state, name).double().cpu().numpy()
+        b = getattr(side.state, name).double().cpu().numpy()
+        if a.size:
+            diff = np.abs(a - b)
+            loaded[name] = float(f"{diff.max():.3e}")
+            held &= bool((diff <= 0.5 * 10.0 ** -d + 2.0 ** -23 * np.abs(b)).all())
+    held &= bool(torch.equal(text.state.num_neighbors, side.state.num_neighbors))
+    parted = []
+    for step in range(CLI_SHORT_STEPS + 1, 2 * CLI_SHORT_STEPS + 1):
+        a, _ = text.run(step)
+        b, _ = side.run(step)
+        dscore = (a.scoring - b.scoring).abs()
+        dt = (a.t - b.t).abs().amax(dim=1)
+        parted.append((int((dscore > ATOL).sum()), float(f"{float(dscore.max()):.3e}"),
+                       int((dt > 1e-4).sum())))
+    return held, loaded, parted
+
+
+def cli_path_phase(card, counters):
+    """Phase 19: the command line on the 1ppe-shaped DFIRE files, 100 steps,
+    against ``GsoTorchRunner`` built from ``load_simulation`` on the same
+    files."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.engine.runner import GsoTorchRunner
+    from lightdock_tpu_torch.simulation import load_simulation
+
+    label = f"CLI 1ppe DFIRE ({DFIRE_ATOMS[0]} x {DFIRE_ATOMS[1]} atoms, {N_POSES} glowworms)"
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        setup, (pos,) = standin.write_complex(work, "dfire", *DFIRE_ATOMS, N_POSES, seed=SEED)
+        metrics = work / "metrics.jsonl"
+        launches, run_s, out = cli_run(counters, work, [setup, pos, STEPS, "dfire",
+                                                        "--metrics", metrics])
+        swarm = work / "swarm_0"
+        expected = {f"gso_{s}.out" for s in [1] + list(range(10, STEPS + 1, 10))}
+        snaps = {q.name for q in swarm.glob("gso_*.out")}
+        sidecars = {q.name[:-4] for q in swarm.glob("gso_*.out.npz")}
+        events = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+        summary = events[-1]
+        say(f"phase 19: {label}: `lightdock-tpu-torch setup.json initial_positions_0.dat "
+            f"{STEPS} dfire --metrics` in {run_s:.3f} s (parsing and model building "
+            f"included); kernel launches {launches}; {len(snaps)} snapshots, "
+            f"{len(sidecars)} sidecars; its output ends: "
+            + " | ".join(out.strip().splitlines()[-2:]))
+        only(launches, "dfire_pairs", STEPS, label)
+        check(snaps == expected and sidecars == expected, f"{label}: snapshots {sorted(snaps)}")
+        scores = [sidecar_scores(swarm, s) for s in (1, STEPS)]
+        check(all(np.isfinite(x).all() and x.shape == (N_POSES,) for x in scores),
+              f"{label}: non-finite or misshapen scores")
+        check([e["event"] for e in events] == ["segment"] * (STEPS // SEGMENT) + ["summary"]
+              and summary["total_poses_scored"] == N_POSES * STEPS
+              and summary["backend"] == "cuda" and summary["poses_per_s"] > 0,
+              f"{label}: metrics events {[e['event'] for e in events]}, summary {summary}")
+
+        t0 = time.perf_counter()
+        with working_directory(work):
+            sim = load_simulation(setup, pos, "dfire")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = sim.batch_params(np.float32)
+        params_s = time.perf_counter() - t0
+
+        def runner(out_dir=None):
+            return GsoTorchRunner(params, sim.positions, sim.seed, sim.use_anm,
+                                  sim.setup.anm_rec, sim.setup.anm_lig,
+                                  output_directory=out_dir, dtype=torch.float32,
+                                  device="cuda")
+
+        direct = runner(str(work / "runner"))
+        direct.run_segmented(STEPS, SEGMENT)
+        ours = torch.as_tensor(scores[0])
+        theirs = torch.as_tensor(sidecar_scores(work / "runner", 1))
+        err = float((ours - theirs).abs().max())
+        close = bool(torch.allclose(ours, theirs, rtol=RTOL, atol=ATOL))
+        same = ((swarm / f"gso_{STEPS}.out").read_text()
+                == (work / "runner" / f"gso_{STEPS}.out").read_text())
+        timer, times = runner(), []
+        for _ in range(5):
+            timer.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.run(STEPS)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+    say(f"phase 19: {label}: step-1 scores against GsoTorchRunner on the same files "
+        f"max|diff| {err:.3e} (allclose {close}); gso_{STEPS}.out byte-identical "
+        f"to the runner's {same}")
+    say(f"phase 19: [{card}] {label}: poses/s: the CLI's --metrics summary "
+        f"{summary['poses_per_s']} (segments with snapshots and sidecars, "
+        f"{summary['total_seconds']} s of {run_s:.3f} s); GsoTorchRunner.run({STEPS}) on "
+        f"the same files, min of 5 {best:.4f} s = {N_POSES * STEPS / best:.1f} "
+        f"(all: {', '.join(f'{x:.4f}' for x in times)}); once a run: "
+        f"load_simulation (PDB files, setup.json, models, positions) {load_s * 1e3:.1f} ms, "
+        f"batch_params {params_s * 1e3:.1f} ms")
+    check(close, f"{label}: step-1 scores differ from the runner's")
+
+
+def cli_rest_phase(card, counters):
+    """Phase 20: the command line's DNA + ANM path, the multi-swarm glob and
+    --resume auto, kernel_v1, the text resume, --profile and
+    ``python -m lightdock_tpu_torch.cli``."""
+    import numpy as np
+
+    from lightdock_tpu_torch import standin
+
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        # DNA with 10 + 10 ANM modes on the 1azp-shaped files: K3.
+        dna = work / "dna"
+        setup, (pos,) = standin.write_complex(dna, "dna", *DNA_ATOMS, N_POSES,
+                                              num_anm=DNA_ANM, seed=SEED)
+        label = f"CLI 1azp DNA + ANM ({DNA_ATOMS[0]} x {DNA_ATOMS[1]}, {DNA_ANM} + {DNA_ANM} modes)"
+        launches, run_s, _ = cli_run(counters, dna, [setup, pos, CLI_DNA_STEPS, "dna"])
+        last = dna / "swarm_0" / f"gso_{CLI_DNA_STEPS}.out"
+        cols = snapshot_columns(last)
+        finite = bool(np.isfinite(sidecar_scores(dna / "swarm_0", CLI_DNA_STEPS)).all())
+        say(f"phase 20: {label}: {CLI_DNA_STEPS} steps in {run_s:.3f} s; kernel "
+            f"launches {launches}; gso_{CLI_DNA_STEPS}.out with {cols} pose columns; "
+            f"finite scores {finite}")
+        only(launches, "elec_vdw_pairs", CLI_DNA_STEPS, label)
+        check(cols == 7 + 2 * DNA_ANM and finite, f"{label}: {cols} columns, finite {finite}")
+        # The same files in --energy-mode kernel_v1: K5.
+        dna_v1 = work / "dna_v1"
+        dna_v1.mkdir()
+        label += " --energy-mode kernel_v1"
+        launches, run_s, _ = cli_run(counters, dna_v1, [setup, pos, CLI_SHORT_STEPS, "dna",
+                                                        "--energy-mode", "kernel_v1",
+                                                        "--anm-dir", dna])
+        finite = bool(np.isfinite(sidecar_scores(dna_v1 / "swarm_0", CLI_SHORT_STEPS)).all())
+        say(f"phase 20: {label}: {CLI_SHORT_STEPS} steps in {run_s:.3f} s; kernel "
+            f"launches {launches}; finite scores {finite}")
+        only(launches, "elec_vdw_pairs_v1", CLI_SHORT_STEPS, label)
+        check(finite, f"{label}: non-finite scores")
+
+        # The multi-swarm glob, 32 x 200 on the 1ppe-shaped files, then
+        # --resume auto, against an uninterrupted run.
+        farm = work / "farm"
+        setup, _ = standin.write_complex(farm, "dfire", *DFIRE_ATOMS, N_POSES,
+                                         n_swarms=FARM_SWARMS, seed=SEED)
+        glob = str(farm / "initial_positions_*.dat")
+        label = f"CLI multi-swarm glob {FARM_SWARMS} x {N_POSES} 1ppe DFIRE"
+        part, full = farm / "part", farm / "full"
+        part.mkdir()
+        full.mkdir()
+        first, first_s, _ = cli_run(counters, part, [setup, glob, CLI_FARM_STEPS, "dfire"])
+        resumed, resumed_s, out = cli_run(counters, part, [setup, glob, CLI_RESUMED_STEPS,
+                                                           "dfire", "--resume", "auto"])
+        whole, whole_s, _ = cli_run(counters, full, [setup, glob, CLI_RESUMED_STEPS, "dfire"])
+        dirs = sorted(q.name for q in part.iterdir())
+        a = np.stack([sidecar_scores(part / f"swarm_{i}", CLI_RESUMED_STEPS)
+                      for i in range(FARM_SWARMS)])
+        b = np.stack([sidecar_scores(full / f"swarm_{i}", CLI_RESUMED_STEPS)
+                      for i in range(FARM_SWARMS)])
+        err = float(np.abs(a - b).max())
+        close = bool(np.allclose(a, b, rtol=RTOL, atol=ATOL)) and bool(np.isfinite(a).all())
+        same = all((part / f"swarm_{i}" / f"gso_{CLI_RESUMED_STEPS}.out").read_text()
+                   == (full / f"swarm_{i}" / f"gso_{CLI_RESUMED_STEPS}.out").read_text()
+                   for i in range(FARM_SWARMS))
+        say(f"phase 20: {label}: {CLI_FARM_STEPS} steps in {first_s:.3f} s, kernel "
+            f"launches {first}; resumed to {CLI_RESUMED_STEPS} with --resume auto in "
+            f"{resumed_s:.3f} s, kernel launches {resumed} ({out.strip().splitlines()[-1]}); "
+            f"{len(dirs)} swarm directories; gso_{CLI_RESUMED_STEPS} scores against an "
+            f"uninterrupted {CLI_RESUMED_STEPS}-step run ({whole_s:.3f} s, launches "
+            f"{whole['dfire_pairs']}) max|diff| {err:.3e} (allclose {close}); every "
+            f"gso_{CLI_RESUMED_STEPS}.out byte-identical {same}")
+        only(first, "dfire_pairs", CLI_FARM_STEPS, label)
+        only(resumed, "dfire_pairs", CLI_RESUMED_STEPS - CLI_FARM_STEPS, f"{label}, resumed")
+        check(dirs == sorted(f"swarm_{i}" for i in range(FARM_SWARMS)),
+              f"{label}: swarm directories {dirs[:4]}...")
+        check(close, f"{label}: the resumed scores differ from the uninterrupted run's")
+
+        # kernel_v1 (K4), then the resume from its gso_10.out (K1): with
+        # the sidecar, and from the text with the sidecar deleted; then
+        # --profile, on the 1ppe-shaped files of swarm 0.
+        pos = farm / "initial_positions_0.dat"
+        v1 = farm / "v1"
+        v1.mkdir()
+        label = "CLI 1ppe DFIRE --energy-mode kernel_v1"
+        launches, run_s, _ = cli_run(counters, v1, [setup, pos, CLI_SHORT_STEPS, "dfire",
+                                                    "--energy-mode", "kernel_v1"])
+        say(f"phase 20: {label}: {CLI_SHORT_STEPS} steps in {run_s:.3f} s (the step "
+            f"tables built); kernel launches {launches}")
+        only(launches, "dfire_pairs_v1", CLI_SHORT_STEPS, label)
+        v1_sidecar = farm / "v1_sidecar"
+        shutil.copytree(v1, v1_sidecar)
+        (v1 / "swarm_0" / f"gso_{CLI_SHORT_STEPS}.out.npz").unlink()
+        resume = ["--resume", f"swarm_0/gso_{CLI_SHORT_STEPS}.out",
+                  "--resume-step", CLI_SHORT_STEPS]
+        label = f"CLI --resume swarm_0/gso_{CLI_SHORT_STEPS}.out (text, no sidecar)"
+        launches, run_s, _ = cli_run(counters, v1, [setup, pos, 2 * CLI_SHORT_STEPS,
+                                                    "dfire", *resume])
+        by_sidecar, side_s, _ = cli_run(counters, v1_sidecar, [setup, pos, 2 * CLI_SHORT_STEPS,
+                                                               "dfire", *resume])
+        text = sidecar_scores(v1 / "swarm_0", 2 * CLI_SHORT_STEPS)
+        side = sidecar_scores(v1_sidecar / "swarm_0", 2 * CLI_SHORT_STEPS)
+        loaded_ok, loaded, parted = text_resume_divergence(setup, pos, v1, v1_sidecar)
+        say(f"phase 20: {label}: steps {CLI_SHORT_STEPS + 1}-{2 * CLI_SHORT_STEPS} in "
+            f"{run_s:.3f} s; kernel launches {launches}; the state load_snapshot reads "
+            f"from the text against the sidecar's, max|diff| {loaded} (within the text's "
+            f"decimals {loaded_ok}); gso_{2 * CLI_SHORT_STEPS} scores against the resume "
+            f"from the sidecar ({side_s:.3f} s, launches {by_sidecar}): "
+            f"{int((np.abs(text - side) > ATOL).sum())} of {N_POSES} poses beyond {ATOL}, "
+            f"max|diff| {float(np.abs(text - side).max()):.3e}; the two resumes stepped "
+            f"by GsoTorchRunner, a step (poses with |dscore| > {ATOL}, max|dscore|, "
+            f"poses with |dt| > 1e-4): {parted}")
+        only(launches, "dfire_pairs", CLI_SHORT_STEPS, label)
+        only(by_sidecar, "dfire_pairs", CLI_SHORT_STEPS, f"{label}, from the sidecar")
+        check(loaded_ok, f"{label}: the state read from the text differs from the "
+              f"sidecar's beyond the text's decimals: {loaded}")
+        check(bool(np.isfinite(text).all()) and text.shape == (N_POSES,),
+              f"{label}: non-finite or misshapen scores")
+        prof = farm / "profile"
+        prof.mkdir()
+        launches, run_s, _ = cli_run(counters, prof, [setup, pos, CLI_SHORT_STEPS, "dfire",
+                                                      "--profile"])
+        trace = prof / "swarm_0" / "torch_trace.json"
+        size = trace.stat().st_size if trace.exists() else 0
+        say(f"phase 20: CLI --profile: {CLI_SHORT_STEPS} steps in {run_s:.3f} s; kernel "
+            f"launches {launches}; {trace.name} {size} bytes")
+        only(launches, "dfire_pairs", CLI_SHORT_STEPS, "CLI --profile")
+        check(size > 0, "CLI --profile wrote no trace")
+
+        # A process of its own: python -m lightdock_tpu_torch.cli.
+        sub = farm / "subprocess"
+        sub.mkdir()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lightdock_tpu_torch.cli", str(setup), str(pos),
+             str(CLI_SHORT_STEPS), "dfire"], cwd=sub, capture_output=True, text=True,
+            timeout=600, env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                [str(ROOT)] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x])})
+        sub_s = time.perf_counter() - t0
+        say(f"phase 20: `python -m lightdock_tpu_torch.cli ... {CLI_SHORT_STEPS} dfire` in "
+            f"a process of its own: exit {proc.returncode} in {sub_s:.3f} s; its output "
+            "ends: " + " | ".join(proc.stdout.strip().splitlines()[-2:]))
+        check(proc.returncode == 0 and (sub / "swarm_0" / f"gso_{CLI_SHORT_STEPS}.out").exists(),
+              f"python -m lightdock_tpu_torch.cli exit {proc.returncode}: {proc.stderr[-2000:]}")
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1787,6 +2143,10 @@ def main() -> int:
 
     # -- 18. the table-selection probes P1-P6 ------------------------------------
     probe_records = probe_phase(card, built["probes"])
+
+    # -- 19-20. the command line ------------------------------------------------
+    cli_path_phase(card, counters)
+    cli_rest_phase(card, counters)
 
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),

@@ -1,0 +1,280 @@
+"""The command line of the PyTorch port, argv-compatible with the
+reference binary and with ``lightdock-tpu``:
+
+    lightdock-tpu-torch <setup.json> <initial_positions_N.dat> <steps> <dfire|dna|pydock>
+    python -m lightdock_tpu_torch.cli <setup.json> <initial_positions_N.dat> <steps> <method>
+
+Port of ``lightdock_tpu/cli.py``.  Outputs go to ``./swarm_N/gso_{step}.out``
+(created when missing); ANM ``.npy`` files are read from the working
+directory.  A glob or a comma-separated list of positions files runs every
+swarm in one farm (``parallel.farm.run_swarm_farm``).
+
+The run is on the CUDA card unless ``--platform cpu`` is given; without a
+card it raises (``engine.runner.cuda_device``) and never carries on on the
+CPU.  The flags are the JAX command line's, mapped so:
+
+- ``--energy-mode``: ``auto`` (= ``kernel``), ``kernel``, ``kernel_v1``,
+  ``dense``; JAX's ``pallas`` and ``xla`` are taken as ``kernel`` and
+  ``dense``.
+- ``--energy-chunk``: the dense mode takes :func:`pick_energy_chunk`'s
+  chunk by default; the kernel modes ignore it and score every pose in one
+  call, as JAX's Pallas paths do.
+- ``--dtype``: float32 on the card, float64 on the CPU by default;
+  float64 on the card is refused but with ``--energy-mode dense`` (the
+  kernels take float32 only).
+- ``--r-tile``/``--l-tile``: refused (the card's kernel tiles are fixed).
+- ``--jax-rng``: the runner's native stream (``engine.runner.
+  native_stream``), deterministic but not JAX's.
+- ``--profile``: ``torch.profiler`` over the run, a Chrome trace
+  ``torch_trace.json`` in the output directory.
+- ``--engine`` is not offered: the float64 host engine stays with
+  ``lightdock-tpu --engine host``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import glob
+import logging
+import os
+import pathlib
+import sys
+import time
+
+ENERGY_MODES = ("auto", "kernel", "kernel_v1", "dense")
+ENERGY_MODE_ALIASES = {"pallas": "kernel", "xla": "dense"}
+
+
+def _energy_mode(name: str) -> str:
+    return ENERGY_MODE_ALIASES.get(name, name)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="lightdock-tpu-torch",
+        description="GSO docking on a CUDA GPU (DFIRE / DNA / PYDOCK scoring)")
+    ap.add_argument("setup", help="setup.json produced by lightdock3_setup.py")
+    ap.add_argument("positions", help="initial_positions_N.dat, or a glob or "
+                    "comma-separated list of them (one farm of swarms)")
+    ap.add_argument("steps", type=int, help="number of GSO steps")
+    ap.add_argument("method", type=str.lower, choices=["dfire", "dna", "pydock"])
+    ap.add_argument("--platform", choices=["auto", "cuda", "cpu"], default="auto",
+                    help="auto and cuda run on the CUDA card (an error "
+                         "without one); cpu runs the kernels' plain versions")
+    ap.add_argument("--dtype", choices=["float32", "float64"], default=None,
+                    help="compute precision (default: float32 on the card, "
+                         "float64 on the CPU)")
+    ap.add_argument("--energy-chunk", type=int, default=None,
+                    help="poses of one dense energy call (default: from "
+                         "the pair count; the kernel modes score all poses "
+                         "in one call)")
+    ap.add_argument("--anm-dir", default=None,
+                    help="directory holding rec_nm.npy/lig_nm.npy "
+                         "(default: working directory, like the reference)")
+    ap.add_argument("--output-dir", default=None,
+                    help="override output directory (default: ./swarm_N)")
+    ap.add_argument("--steps-per-save", type=int, default=10)
+    ap.add_argument("--energy-mode", type=_energy_mode, choices=ENERGY_MODES,
+                    default="auto",
+                    help="kernel: the v2 pair kernels (auto is kernel); "
+                         "kernel_v1: the v1 kernels; dense: the dense "
+                         "PyTorch energy.  JAX's pallas and xla are taken "
+                         "as kernel and dense")
+    ap.add_argument("--dq-bf16", action="store_true",
+                    help="store the DFIRE step tables in bfloat16 where the "
+                         "mode reads them (kernel_v1, dense at float32)")
+    ap.add_argument("--r-tile", type=int, default=None,
+                    help="refused: the card's kernel tiles are fixed")
+    ap.add_argument("--l-tile", type=int, default=None,
+                    help="refused: the card's kernel tiles are fixed")
+    ap.add_argument("--jax-rng", action="store_true",
+                    help="draw a native torch stream on the device instead of "
+                         "the bit-exact reference (rand 0.7) stream")
+    ap.add_argument("--profile", action="store_true",
+                    help="capture a torch.profiler trace of the run")
+    ap.add_argument("--metrics", metavar="FILE", default=None,
+                    help="write JSON-lines run metrics to FILE")
+    ap.add_argument("--resume", metavar="GSO_OUT",
+                    help="resume from a previous gso_N.out snapshot; in "
+                         "multi-swarm mode pass 'auto' to continue every "
+                         "swarm from its newest sidecar checkpoint")
+    ap.add_argument("--resume-step", type=int, default=0,
+                    help="step number the snapshot corresponds to")
+    return ap
+
+
+def pick_energy_chunk(n_pairs: int, g: int, dtype_bytes: int) -> int:
+    """Poses of one dense energy call: the (chunk, Nr, Nl) working set held
+    to about 1.5 GB of intermediates, rounded to an even split of the
+    glowworm axis; 0 when every pose fits."""
+    budget = int(1.5e9 / (6 * dtype_bytes))  # ~6 live pair-sized arrays
+    chunk = max(1, budget // max(n_pairs, 1))
+    if chunk >= g:
+        return 0  # no chunking needed
+    n_seg = -(-g // chunk)
+    return -(-g // n_seg)
+
+
+@contextlib.contextmanager
+def profiled(enabled: bool, device, out_dir, log):
+    """``torch.profiler`` around the block when ``enabled`` (CUDA activity
+    too on the card), its Chrome trace written to
+    ``out_dir/torch_trace.json``."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    trace = pathlib.Path(out_dir) / "torch_trace.json"
+    prof.export_chrome_trace(str(trace))
+    log.info("profiler trace written to %s", trace)
+
+
+def main(argv=None) -> int:
+    parser = build_arg_parser()
+    args = parser.parse_args(argv)
+    if args.r_tile is not None or args.l_tile is not None:
+        parser.error("--r-tile/--l-tile are not taken: the card's kernel "
+                     "tiles are fixed")
+    device_name = "cpu" if args.platform == "cpu" else "cuda"
+    dtype_name = args.dtype or ("float64" if device_name == "cpu" else "float32")
+    if device_name == "cuda" and dtype_name == "float64" and args.energy_mode != "dense":
+        parser.error(f"--dtype float64 on the card needs --energy-mode dense: "
+                     f"the {args.energy_mode} mode's kernels take float32 only")
+    logging.basicConfig(
+        level=os.environ.get("LIGHTDOCK_TPU_LOG", "INFO"),
+        format="%(levelname)s %(name)s: %(message)s")
+    log = logging.getLogger("lightdock_tpu_torch")
+
+    from .engine.runner import cuda_device
+    from .simulation import load_simulation
+    from .utils.positions import parse_swarm_id
+
+    device = cuda_device(device_name, "lightdock-tpu-torch")
+
+    # Multi-swarm mode: a glob or a comma-separated list of positions files
+    # runs every swarm in one farm.
+    multi = ([p for part in args.positions.split(",") for p in sorted(glob.glob(part))]
+             if ("," in args.positions or any(c in args.positions for c in "*?["))
+             else None)
+    if multi:
+        return run_multi(args, multi, log, device, dtype_name)
+
+    print(f"Reading starting positions from {args.positions!r}")
+    swarm_id = parse_swarm_id(args.positions)
+    print(f"Swarm ID {swarm_id}")
+    outdir = pathlib.Path(args.output_dir or f"swarm_{swarm_id}")
+    if not outdir.is_dir():
+        print(f"Output directory does not exist for swarm {swarm_id}, creating it",
+              file=sys.stderr)
+        outdir.mkdir(parents=True, exist_ok=True)
+    print(f"Writing to swarm dir {str(outdir)!r}")
+
+    print(f"Loading {args.method.upper()} scoring function")
+    sim = load_simulation(args.setup, args.positions, args.method,
+                          anm_dir=args.anm_dir)
+    print(f"Creating GSO with {sim.positions.shape[0]} glowworms")
+
+    start = time.time()
+    run_torch(sim, args, outdir, log, device, dtype_name)
+    print(f"Done ({args.steps} steps) in {time.time() - start:.2f}s")
+    return 0
+
+
+def run_multi(args, positions_files, log, device, dtype_name) -> int:
+    """Every swarm in one farm on one device (``parallel.farm``)."""
+    import numpy as np
+    import torch
+
+    from .parallel.farm import run_swarm_farm
+    from .simulation import load_simulation
+    from .utils.metrics import RunMetrics
+    from .utils.positions import parse_positions, parse_swarm_id
+
+    dtype = torch.float64 if dtype_name == "float64" else torch.float32
+    sim = load_simulation(args.setup, positions_files[0], args.method,
+                          anm_dir=args.anm_dir)
+    swarm_ids = [parse_swarm_id(p) for p in positions_files]
+    positions_list = [parse_positions(p) for p in positions_files]
+    print(f"Running {len(positions_list)} swarms x "
+          f"{positions_list[0].shape[0]} glowworms on 1 device(s) [{device.type}]")
+
+    n_pairs = sim.receptor.num_atoms * sim.ligand.num_atoms
+    g = positions_list[0].shape[0]
+    chunk = (args.energy_chunk if args.energy_chunk is not None
+             else pick_energy_chunk(n_pairs, g * len(positions_list),
+                                    np.dtype(dtype_name).itemsize))
+    metrics = RunMetrics(args.metrics, context={
+        "backend": device.type, "dtype": dtype_name, "method": sim.method,
+        "pairs": n_pairs, "glowworms": g, "swarms": len(positions_list)})
+    output_root = args.output_dir or "."
+
+    t0 = time.time()
+    try:
+        with profiled(args.profile, device, output_root, log):
+            run_swarm_farm(sim.batch_params(dtype=np.dtype(dtype_name)),
+                           positions_list, swarm_ids, sim.seed, args.steps,
+                           sim.use_anm, sim.setup.anm_rec, sim.setup.anm_lig,
+                           dtype, output_root=output_root,
+                           energy_chunk=chunk, energy_mode=args.energy_mode,
+                           segment=max(1, args.steps_per_save),
+                           metrics=metrics, resume=bool(args.resume), device=device)
+        summary = metrics.summary()
+    finally:
+        metrics.close()
+    dt = time.time() - t0
+    total_poses = len(positions_list) * g * args.steps
+    print(f"Done: {len(positions_list)} swarms x {args.steps} steps in "
+          f"{dt:.2f}s ({total_poses / dt:.0f} poses/s aggregate)")
+    if summary["poses_per_s"]:
+        print(f"Throughput: {summary['poses_per_s']} poses/s")
+    return 0
+
+
+def run_torch(sim, args, outdir, log, device, dtype_name) -> None:
+    """One swarm through ``engine.runner.GsoTorchRunner``."""
+    import numpy as np
+    import torch
+
+    from .engine.runner import GsoTorchRunner
+    from .utils.metrics import RunMetrics
+
+    dtype = torch.float64 if dtype_name == "float64" else torch.float32
+    n_pairs = sim.receptor.num_atoms * sim.ligand.num_atoms
+    g = sim.positions.shape[0]
+    chunk = (args.energy_chunk if args.energy_chunk is not None
+             else pick_energy_chunk(n_pairs, g, np.dtype(dtype_name).itemsize))
+    log.info("backend=%s dtype=%s energy_chunk=%s pairs=%d",
+             device.type, dtype_name, chunk, n_pairs)
+
+    runner = GsoTorchRunner(
+        sim.batch_params(dtype=np.dtype(dtype_name)), sim.positions, sim.seed,
+        sim.use_anm, sim.setup.anm_rec, sim.setup.anm_lig,
+        output_directory=str(outdir), dtype=dtype,
+        device=device, energy_mode=args.energy_mode, energy_chunk=chunk,
+        dq_bf16=args.dq_bf16,
+        rng_mode="native" if args.jax_rng else "reference")
+    if args.resume:
+        runner.load_snapshot(args.resume, args.resume_step)
+    print(f"Starting optimization ({args.steps} steps)")
+    metrics = RunMetrics(args.metrics, context={
+        "backend": device.type, "dtype": dtype_name, "method": sim.method,
+        "pairs": n_pairs, "glowworms": g})
+    try:
+        with profiled(args.profile, device, outdir, log):
+            runner.run_segmented(args.steps, max(1, args.steps_per_save), metrics=metrics)
+        summary = metrics.summary()
+    finally:
+        metrics.close()
+    if summary["poses_per_s"]:
+        print(f"Throughput: {summary['poses_per_s']} poses/s")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,7 +40,7 @@ from ..ops.tiling import (L_TILE, R_TILE, anm_mode_bounds, cull_subsizes,
                           pad_box_groups, rec_box_geometry,
                           spatial_sort_params, tile_boxes)
 from .energy_dense import bias, finalize_raw, mode_sum, rotate_translate
-from .params import BatchScoringParams, ensure_dfire_types
+from .params import BatchScoringParams, ensure_dfire_steps, ensure_dfire_types
 
 # The JAX rule (``pallas_energy.V2_WORKLIST_MIN_TILES``): DFIRE grids of at
 # least this many tile pairs take the work-list kernel K2.
@@ -68,9 +68,12 @@ def kernel_params(params: BatchScoringParams, kernel: str = "v2") -> BatchScorin
     """``params`` as the kernel path takes them, with both atom axes in RCB
     order so the tile cull bites (energies are unchanged).  For 'v2' DFIRE
     takes the type-indexed tables without the redundant (K, Nr, Nl) dq
-    tensor; for 'v1' it keeps the step tables its kernel reads."""
+    tensor; for 'v1' the step tables its kernel reads, built where
+    ``params`` lacks them."""
     if params.method == "dfire" and kernel == "v2":
         params = dataclasses.replace(ensure_dfire_types(params), dfire_dq=None)
+    elif kernel == "v1":
+        params = ensure_dfire_steps(params)
     return spatial_sort_params(params)
 
 

@@ -166,6 +166,19 @@ def ensure_dfire_types(p: BatchScoringParams,
                                dfire_thresholds=thresholds)
 
 
+def ensure_dfire_steps(p: BatchScoringParams) -> BatchScoringParams:
+    """``p`` with the (K, Nr, Nl) DFIRE step tables populated (no-op for
+    other methods or when present), at the dtype ``p`` was built at, as
+    ``build_batch_params(dfire_mode='steps')`` builds them."""
+    if p.method != "dfire" or p.dfire_dq is not None:
+        return p
+    dq, thresholds = dfire_step_tables(
+        np.asarray(p.atom_types_rec), np.asarray(p.atom_types_lig),
+        np.asarray(p.potential, np.float64), np.asarray(p.dist_to_bins),
+        dtype=np.asarray(p.rec_coords).dtype)
+    return dataclasses.replace(p, dfire_dq=dq, dfire_thresholds=thresholds)
+
+
 def _res_onehot(model: DockingModel) -> np.ndarray:
     res_of_atom, n_res = model.restraint_segments()
     onehot = np.zeros((n_res, model.num_atoms), dtype=np.float64)

@@ -1,16 +1,18 @@
 """Host-facing GSO runner on torch.
 
-Port of ``lightdock_tpu/engine/gso_jax.py`` ``GsoJaxRunner``: the
-host-side rand-0.7 stream (reference RNG mode), the energy modes, ``run``,
-``run_segmented``, ``reset``, ``load_snapshot`` from a ``.npz`` sidecar,
-and the ``gso_N.out`` snapshots with their sidecars (``utils.output``),
-with ANM coefficients when ``use_anm``.  The energy modes
-(:func:`make_energy`) are 'kernel' (JAX's 'pallas': the v2 kernels of
-``engine.energy_kernel``), 'kernel_v1' ('pallas_v1': K4 and K5), 'dense'
-('xla': ``energy_dense.batch_energy_chunked``) and 'auto', which is
-'kernel': the JAX crossover map was measured on a TPU, and the port's own
-rule waits for H100 data.  A kernel runs on the card (the default device);
-where the caller asks for the CPU, its plain version runs instead.
+Port of ``lightdock_tpu/engine/gso_jax.py`` ``GsoJaxRunner``: the random
+stream (the host-side rand-0.7 stream, or a native one made on the device),
+the energy modes, ``run``, ``run_segmented`` with its metrics hook,
+``reset``, ``load_snapshot`` from a ``.npz`` sidecar or the text of a
+``gso_N.out``, and the ``gso_N.out`` snapshots with their sidecars
+(``utils.output``), with ANM coefficients when ``use_anm``.  The energy
+modes (:func:`make_energy`) are 'kernel' (JAX's 'pallas': the v2 kernels
+of ``engine.energy_kernel``), 'kernel_v1' ('pallas_v1': K4 and K5),
+'dense' ('xla': ``energy_dense.batch_energy_chunked``) and 'auto', which
+is 'kernel': the JAX crossover map was measured on a TPU, and the port's
+own rule waits for H100 data.  A kernel runs on the card (the default
+device); where the caller asks for the CPU, its plain version runs
+instead.
 """
 
 from __future__ import annotations
@@ -18,21 +20,23 @@ from __future__ import annotations
 import dataclasses
 import functools
 import pathlib
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..utils.output import (read_state_sidecar, write_gso_output,
-                            write_state_sidecar)
+from ..utils.output import (read_gso_output, read_state_sidecar,
+                            write_gso_output, write_state_sidecar)
+from ..utils.positions import split_positions
 from ..utils.rng import uniform_f64_stream
 from .energy_dense import batch_energy_chunked
-from .energy_kernel import (kernel_params, make_kernel_energy_fn,
-                            pose_chunked_energy)
+from .energy_kernel import kernel_params, make_kernel_energy_fn
 from .gso import StepOutput, SwarmState, init_state, run_swarm
-from .params import BatchScoringParams, torch_params
+from .params import BatchScoringParams, ensure_dfire_steps, torch_params
 
 ENERGY_MODES = ("auto", "kernel", "kernel_v1", "dense")
+RNG_MODES = ("reference", "native")
 
 
 def cuda_device(device, who: str) -> torch.device:
@@ -52,10 +56,13 @@ def make_energy(params: BatchScoringParams, energy_mode: str, device,
                 dtype: torch.dtype, energy_chunk: int = 0, dq_bf16: bool = False,
                 cull: bool = True):
     """(tensor params, energy_fn) of an energy mode (see the module
-    docstring).  ``energy_chunk`` > 0 caps the poses of one call: dense
-    chunks, or kernel calls through ``pose_chunked_energy``; 0 scores every
-    pose at once.  ``dq_bf16`` stores the DFIRE step tables in bfloat16
-    where the mode reads them ('kernel_v1', 'dense' with step-form params);
+    docstring).  Each mode takes the DFIRE tables it reads from any form of
+    ``params``: the kernel modes through ``kernel_params``, the dense mode
+    the step form at float32 (as JAX's 'xla' mode reads it there) and the
+    gather at float64.  ``energy_chunk`` > 0 caps the poses of one dense
+    call; the kernel modes ignore it and score every pose in one call, as
+    JAX's Pallas paths do.  ``dq_bf16`` stores the DFIRE step tables in
+    bfloat16 where the mode reads them ('kernel_v1', 'dense' at float32);
     each value is upcast before it is added.  ``cull`` False gives the
     kernel modes every tile of every pose (``make_kernel_energy_fn``); the
     dense mode has no cull and ignores it, as JAX's 'xla' mode does."""
@@ -63,14 +70,14 @@ def make_energy(params: BatchScoringParams, energy_mode: str, device,
         raise ValueError(f"energy_mode must be one of {ENERGY_MODES}, got "
                          f"{energy_mode!r}")
     if energy_mode == "dense":
+        if dtype == torch.float32:
+            params = ensure_dfire_steps(params)
         energy_fn = functools.partial(batch_energy_chunked, chunk=energy_chunk)
     else:
         kernel = "v1" if energy_mode == "kernel_v1" else "v2"
         params = kernel_params(params, kernel)
         energy_fn = make_kernel_energy_fn(params, device, dtype, cull=cull,
                                           kernel=kernel)
-        if energy_chunk > 0:
-            energy_fn = pose_chunked_energy(energy_fn, energy_chunk)
     tparams = torch_params(params, device, dtype)
     if dq_bf16 and tparams.dfire_dq is not None:
         tparams = dataclasses.replace(
@@ -78,18 +85,36 @@ def make_energy(params: BatchScoringParams, energy_mode: str, device,
     return tparams, energy_fn
 
 
+def native_stream(seed: int, device, n: int) -> torch.Tensor:
+    """(n,) float32 uniform draws in [0, 1) from ``torch.Generator`` on
+    ``device`` seeded with ``seed``.  Its contract is determinism (the same
+    seed, device and n give the same draws, and a stream of n draws begins
+    with the stream of fewer) and range, not equality with JAX's threefry
+    stream nor with the reference's rand-0.7 stream."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(n, generator=gen, dtype=torch.float32, device=device)
+
+
 class GsoTorchRunner:
     """Runs one swarm: precomputes the random stream, steps the swarm on
     ``device`` and writes snapshots in the reference's cadence and
-    format."""
+    format.
+
+    ``rng_mode`` 'reference' draws the bit-exact rand-0.7 stream on the
+    host; 'native' draws :func:`native_stream` on the device.  Either is
+    made from its start and sliced at the resumed step, so a resumed run
+    takes the draws of the uninterrupted one."""
 
     def __init__(self, params: BatchScoringParams, positions, seed: int,
                  use_anm: bool, anm_rec: int, anm_lig: int,
                  output_directory: Optional[str] = None,
                  dtype: torch.dtype = torch.float32, device="cuda",
                  energy_mode: str = "kernel", energy_chunk: int = 0,
-                 dq_bf16: bool = False, cull: bool = True):
+                 dq_bf16: bool = False, cull: bool = True,
+                 rng_mode: str = "reference"):
         device = cuda_device(device, "GsoTorchRunner")
+        if rng_mode not in RNG_MODES:
+            raise ValueError(f"rng_mode must be one of {RNG_MODES}, got {rng_mode!r}")
         self.params, self.energy_fn = make_energy(
             params, energy_mode, device, dtype, energy_chunk, dq_bf16, cull)
         self.device = device
@@ -98,7 +123,9 @@ class GsoTorchRunner:
         self._initial_state = self.state
         self.use_anm = use_anm
         self.output_directory = output_directory
-        self._stream = functools.partial(uniform_f64_stream, seed)
+        self._stream = (functools.partial(uniform_f64_stream, seed)
+                        if rng_mode == "reference"
+                        else functools.partial(native_stream, seed, device))
         self._start_step = 0  # completed steps
 
     def reset(self) -> None:
@@ -109,18 +136,38 @@ class GsoTorchRunner:
         self.state = self._initial_state
 
     def load_snapshot(self, path, step: Optional[int] = None) -> None:
-        """Resume from the ``.npz`` sidecar of a ``gso_N.out`` snapshot;
-        the resumed run is bit-identical to the uninterrupted one."""
+        """Resume from a ``gso_N.out`` snapshot written at ``step``.
+
+        Its ``.npz`` sidecar, where there is one, gives the state's bits:
+        the resumed run is bit-identical to the uninterrupted one.  Else
+        the text is parsed (7 and 8 decimals, as the reference writes it:
+        a snapshot without a sidecar, for example the reference's), and
+        ``step`` must be given.  The random stream resumes at step x G
+        draws (one draw a glowworm a step, reference src/swarm.rs:118)."""
         sidecar = read_state_sidecar(path)
-        if sidecar is None:
-            raise FileNotFoundError(
-                f"no sidecar next to {path}; resuming from the text snapshot "
-                "alone comes in a later port")
-        sc_step, arrays = sidecar
-        self.state = SwarmState(**{
-            k: torch.as_tensor(arrays[k], device=self.device)
-            for k in SwarmState._fields})
-        self._start_step = int(step) if step else sc_step
+        if sidecar is not None:
+            sc_step, arrays = sidecar
+            self.state = SwarmState(**{
+                k: torch.as_tensor(arrays[k], device=self.device)
+                for k in SwarmState._fields})
+            self._start_step = int(step) if step else sc_step
+            return
+        poses, luc, nn, vis, sco = read_gso_output(path)
+        if step is None:
+            raise ValueError(f"no sidecar next to {path}; pass the snapshot's step")
+        t, q, ar, al = split_positions(poses, self.use_anm,
+                                       self.state.a_rec.shape[1],
+                                       self.state.a_lig.shape[1])
+        dtype = self.state.t.dtype
+
+        def tensor(x, dt=dtype):
+            return torch.as_tensor(x, dtype=dt, device=self.device)
+
+        self.state = SwarmState(
+            t=tensor(t), q=tensor(q), a_rec=tensor(ar), a_lig=tensor(al),
+            luciferin=tensor(luc), vision=tensor(vis), scoring=tensor(sco),
+            num_neighbors=tensor(nn, torch.int32))
+        self._start_step = int(step)
 
     def _randoms(self, steps: int) -> torch.Tensor:
         g = self.state.t.shape[0]
@@ -139,21 +186,31 @@ class GsoTorchRunner:
         self._start_step = steps
         return self.state, outs
 
-    def run_segmented(self, steps: int, segment: int = 10):
+    def run_segmented(self, steps: int, segment: int = 10, metrics=None):
         """Run to ``steps`` in segments of ``segment`` steps, writing each
-        segment's snapshots as it ends: a crash loses at most a segment."""
+        segment's snapshots as it ends: a crash loses at most a segment.
+        ``metrics`` (``utils.metrics.RunMetrics``) gets each segment's
+        poses and seconds, the device synchronized before the clock is
+        read."""
+        g = self.state.t.shape[0]
         randoms = self._randoms(steps)
         base = self._start_step
         outs = None
         while self._start_step < steps:
             start = self._start_step
             target = min(start + segment, steps)
+            t0 = time.perf_counter()
             self.state, outs = run_swarm(self.params, self.state,
                                          randoms[start - base:target - base],
                                          self.energy_fn)
             if self.output_directory is not None:
                 self._write_snapshots(outs, target, start)
             self._start_step = target
+            if metrics is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                metrics.segment(start, target, (target - start) * g,
+                                time.perf_counter() - t0)
         return self.state, outs
 
     def _poses_at(self, outs: StepOutput, i: int) -> np.ndarray:

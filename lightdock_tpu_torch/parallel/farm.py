@@ -20,6 +20,7 @@ from __future__ import annotations
 import logging
 import pathlib
 import re
+import time
 from typing import List, Sequence
 
 import numpy as np
@@ -39,8 +40,9 @@ class SwarmFarmRunner:
     segments of steps, per-swarm snapshots with full-precision sidecars,
     resume.  Every energy mode of ``engine.runner.GsoTorchRunner`` is
     supported ('auto' is 'kernel'); ``energy_chunk`` > 0 caps the poses of
-    one energy call, 0 scores all S x G at once; ``cull`` False turns the
-    kernel modes' box cull off (``engine.runner.make_energy``)."""
+    one dense energy call, 0 scores all S x G at once (the kernel modes
+    always do); ``cull`` False turns the kernel modes' box cull off
+    (``engine.runner.make_energy``)."""
 
     def __init__(self, params: BatchScoringParams,
                  positions_list: Sequence[np.ndarray],
@@ -124,11 +126,13 @@ class SwarmFarmRunner:
 
     # -- execution -----------------------------------------------------------
 
-    def run_segmented(self, steps: int, segment: int = 10):
+    def run_segmented(self, steps: int, segment: int = 10, metrics=None):
         """Run every swarm to ``steps`` in segments of ``segment`` steps,
         writing each segment's snapshots (when ``output_root`` is not None)
-        as it ends.  Returns (states, the last segment's StepOutput with
-        fields (steps, S, ...))."""
+        as it ends; ``metrics`` (``utils.metrics.RunMetrics``) gets each
+        segment's poses (all swarms') and seconds, the device synchronized
+        before the clock is read.  Returns (states, the last segment's
+        StepOutput with fields (steps, S, ...))."""
         if self._start_step >= steps:
             return self.states, None
         g = self.states.t.shape[1]
@@ -141,6 +145,7 @@ class SwarmFarmRunner:
         while self._start_step < steps:
             start = self._start_step
             target = min(start + segment, steps)
+            t0 = time.perf_counter()
             seg = []
             for i in range(start, target):
                 self.states, out = swarms_step(self.params, self.states,
@@ -152,6 +157,11 @@ class SwarmFarmRunner:
                                     self.output_root, start_step=start,
                                     sidecars=True)
             self._start_step = target
+            if metrics is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                metrics.segment(start, target, (target - start) * g * self.n_swarms,
+                                time.perf_counter() - t0)
         return self.states, outs
 
 
@@ -161,10 +171,11 @@ def run_swarm_farm(params: BatchScoringParams,
                    anm_lig: int, dtype: torch.dtype, output_root=".",
                    energy_chunk: int = 0, energy_mode: str = "dense",
                    n_atom_shards: int = 1, segment: int = 10,
-                   resume: bool = False, device="cuda") -> None:
+                   metrics=None, resume: bool = False, device="cuda") -> None:
     """Run S swarms to ``steps`` and write their outputs, resuming from
-    their sidecars with ``resume``.  ``n_atom_shards`` > 1 (receptor atoms
-    sharded over devices) needs the multi-GPU path and raises."""
+    their sidecars with ``resume``; ``metrics`` as in
+    ``SwarmFarmRunner.run_segmented``.  ``n_atom_shards`` > 1 (receptor
+    atoms sharded over devices) needs the multi-GPU path and raises."""
     if n_atom_shards > 1:
         raise NotImplementedError(
             f"n_atom_shards={n_atom_shards}: receptor-atom sharding needs the "
@@ -178,4 +189,4 @@ def run_swarm_farm(params: BatchScoringParams,
         resumed = runner.resume_latest()
         if resumed:
             log.info("resumed %d swarms at step %d", runner.n_swarms, resumed)
-    runner.run_segmented(steps, segment=segment)
+    runner.run_segmented(steps, segment=segment, metrics=metrics)

@@ -11,6 +11,9 @@ atoms of the right counts with the deterministic synthetic DFIRE table.
 * :func:`membrane_system` is the 1k4c-shaped DFIRE membrane complex: a slab
   of receptor atoms flagged as membrane beads and one swarm's poses next
   to the receptor's surface, so that part of the tile grid is culled.
+* :func:`write_complex` writes a stand-in complex as the files the command
+  line reads: PDB files of named atoms, setup.json, positions files and
+  the ANM ``.npy`` files.
 * :func:`bin_edge_case` is no complex but the DFIRE pair kernels' inputs
   with every atom pair on a bin edge or a few ulps beside it;
   :func:`cutoff_edge_case` likewise for the elec/vdw kernels and their
@@ -19,7 +22,9 @@ atoms of the right counts with the deterministic synthetic DFIRE table.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import json
+import pathlib
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -81,6 +86,98 @@ def toy_system(n_rec, n_lig, g, num_anm=0, seed=0, method="dfire",
     pos = np.concatenate(cols, axis=1)
     pos[:, 3:7] /= np.linalg.norm(pos[:, 3:7], axis=1, keepdims=True)
     return params, pos, num_anm
+
+
+# The 20 amino acids (the DFIRE residues but the membrane's MMB and MMY)
+# and the four DNA nucleotides.
+AMINO_ACIDS = ("ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE",
+               "LEU", "LYS", "MET", "PHE", "PRO", "SER", "THR", "TRP", "TYR", "VAL")
+NUCLEOTIDES = ("DA", "DC", "DG", "DT")
+
+
+def _residue_templates(method: str, residues) -> List[tuple]:
+    """(residue name, its atom names) for each of ``residues``, the names
+    the method's tables type: DFIRE's ``atom_slot`` keys, AMBER's
+    ``amber_types`` keys."""
+    if method == "dfire":
+        keys = [(k[:3], k[3:]) for k in tables.dfire_tables()["atom_slot"]]
+    else:
+        keys = [tuple(k.split("-", 1)) for k in tables.amber_tables(method)["amber_types"]]
+    return [(res, [name for r, name in keys if r == res]) for res in residues]
+
+
+def _pdb_lines(coords, templates, chain: str) -> List[str]:
+    """ATOM records of ``coords`` (N, 3): residue k takes template k mod
+    the count, its atoms in the template's order, until N atoms are
+    written.  A name of four letters starts at column 12, shorter ones at
+    13; coordinates are written %8.3f."""
+    lines, k = [], 0
+    while len(lines) < len(coords):
+        res, names = templates[k % len(templates)]
+        k += 1
+        for name in names[:len(coords) - len(lines)]:
+            x, y, z = coords[len(lines)]
+            field = name if len(name) == 4 else f" {name:<3}"
+            lines.append(f"ATOM  {len(lines) + 1:5d} {field} {res:>3} {chain}{k:4d}    "
+                         f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00")
+    return lines
+
+
+def write_complex(directory, method: str, n_rec: int, n_lig: int, g: int,
+                  num_anm: int = 0, n_swarms: int = 1, seed: int = 0):
+    """Write a stand-in complex as the command line's input files under
+    ``directory``: ``lightdock_rec.pdb`` and ``lightdock_lig.pdb``,
+    ``setup.json`` (``rec.pdb``/``lig.pdb``, ``seed``, ``use_anm``,
+    ``anm_rec``, ``anm_lig``, the first residue of each side an active
+    restraint), ``initial_positions_{i}.dat`` for ``i < n_swarms`` (G rows
+    of 7 + 2 ``num_anm`` columns) and, with ``num_anm`` > 0,
+    ``rec_nm.npy`` and ``lig_nm.npy`` (num_anm, N, 3).
+
+    Drawn as :func:`toy_system` draws: atoms uniform in a 40 A cube, modes
+    standard normal x 0.1, translations uniform in [-10, 10] (near the
+    receptor's centre, so every tile pair stays active), random unit
+    quaternions, ANM coefficients uniform in [-1, 1].  Atom names cycle
+    through residue templates of the method's tables: for DFIRE the 20
+    amino acids on both sides (chains A and B); for DNA and PYDOCK the
+    amino acids on the receptor and the DNA nucleotides on the ligand.
+    Returns (setup path, [positions paths])."""
+    rng = np.random.RandomState(seed)
+    root = pathlib.Path(directory)
+    root.mkdir(parents=True, exist_ok=True)
+    rec = rng.uniform(-20, 20, size=(n_rec, 3))
+    lig = rng.uniform(-20, 20, size=(n_lig, 3))
+    lig_residues = AMINO_ACIDS if method == "dfire" else NUCLEOTIDES
+    sides = (("rec", rec, _residue_templates(method, AMINO_ACIDS), "A"),
+             ("lig", lig, _residue_templates(method, lig_residues), "B"))
+    restraints = {}
+    for name, coords, templates, chain in sides:
+        lines = _pdb_lines(coords, templates, chain)
+        (root / f"{C.DEFAULT_LIGHTDOCK_PREFIX}{name}.pdb").write_text(
+            "\n".join(lines + ["END"]) + "\n")
+        restraints[name] = {"active": [f"{chain}.{templates[0][0]}.1"],
+                            "passive": [], "blocked": []}
+    if num_anm:
+        for nm_file, n in ((C.DEFAULT_REC_NM_FILE, n_rec), (C.DEFAULT_LIG_NM_FILE, n_lig)):
+            np.save(root / nm_file, rng.standard_normal((num_anm, n, 3)) * 0.1)
+    setup = root / "setup.json"
+    setup.write_text(json.dumps({
+        "receptor_pdb": "rec.pdb", "ligand_pdb": "lig.pdb", "seed": C.DEFAULT_SEED,
+        "use_anm": num_anm > 0, "anm_rec": num_anm, "anm_lig": num_anm,
+        "swarms": n_swarms, "glowworms": g,
+        "receptor_restraints": restraints["rec"],
+        "ligand_restraints": restraints["lig"]}, indent=2))
+    paths = []
+    for i in range(n_swarms):
+        cols = [rng.uniform(-10, 10, (g, 3)), rng.standard_normal((g, 4))]
+        if num_anm:
+            cols += [rng.uniform(-1, 1, (g, num_anm)), rng.uniform(-1, 1, (g, num_anm))]
+        pos = np.concatenate(cols, axis=1)
+        pos[:, 3:7] /= np.linalg.norm(pos[:, 3:7], axis=1, keepdims=True)
+        path = root / f"initial_positions_{i}.dat"
+        path.write_text("".join(" ".join(repr(float(v)) for v in row) + "\n"
+                                for row in pos))
+        paths.append(path)
+    return setup, paths
 
 
 def membrane_system(g, n_rec=K4C_ATOMS[0], n_lig=K4C_ATOMS[1], seed=0):

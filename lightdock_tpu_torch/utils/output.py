@@ -5,12 +5,14 @@ the text is rendered in Python, byte-compatible with the reference
 (src/swarm.rs:128-167): a header line, then per glowworm the pose tuple at
 7 decimals, the literal ``    0    0   `` column pair, luciferin at 8
 decimals, neighbour count, vision range at 3 decimals and scoring at 8
-decimals.
+decimals.  ``read_gso_output`` parses a snapshot back into arrays (the
+text resume path).
 """
 
 from __future__ import annotations
 
 import pathlib
+import re
 
 import numpy as np
 
@@ -61,3 +63,30 @@ def read_state_sidecar(path):
     with np.load(p) as z:
         data = {k: z[k] for k in z.files if k != "step"}
         return int(z["step"]), data
+
+
+_LINE_RE = re.compile(r"\(([^)]*)\)\s+0\s+0\s+(\S+)\s+(\d+)\s+(\S+)\s+(\S+)")
+
+
+def read_gso_output(path):
+    """Parse a gso_N.out file back into arrays: (poses (G, D), luciferin
+    (G,), num_neighbors (G,), vision (G,), scoring (G,))."""
+    poses, luc, nn, vis, sco = [], [], [], [], []
+    for line in pathlib.Path(path).read_text().splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        m = _LINE_RE.match(line)
+        if not m:
+            raise ValueError(f"unparseable gso line: {line!r}")
+        poses.append([float(v) for v in m.group(1).split(",")])
+        luc.append(float(m.group(2)))
+        nn.append(int(m.group(3)))
+        vis.append(float(m.group(4)))
+        sco.append(float(m.group(5)))
+    return (
+        np.asarray(poses, dtype=np.float64),
+        np.asarray(luc, dtype=np.float64),
+        np.asarray(nn, dtype=np.int64),
+        np.asarray(vis, dtype=np.float64),
+        np.asarray(sco, dtype=np.float64),
+    )

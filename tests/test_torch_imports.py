@@ -24,6 +24,9 @@ PORT_MODULES = [
     "lightdock_tpu_torch.utils.rng",
     "lightdock_tpu_torch.utils.output",
     "lightdock_tpu_torch.utils.positions",
+    "lightdock_tpu_torch.utils.pdb",
+    "lightdock_tpu_torch.utils.setupfile",
+    "lightdock_tpu_torch.utils.metrics",
     "lightdock_tpu_torch.ops.quaternion",
     "lightdock_tpu_torch.ops.tiling",
     "lightdock_tpu_torch.ops.cull",
@@ -39,6 +42,8 @@ PORT_MODULES = [
     "lightdock_tpu_torch.engine.gso",
     "lightdock_tpu_torch.engine.runner",
     "lightdock_tpu_torch.standin",
+    "lightdock_tpu_torch.simulation",
+    "lightdock_tpu_torch.cli",
     "lightdock_tpu_torch.parallel",
     "lightdock_tpu_torch.parallel.multihost",
     "lightdock_tpu_torch.parallel.farm",
@@ -62,9 +67,11 @@ def _forbidden(name):
 def test_port_never_imports_jax():
     """After importing every port module, building the stand-in systems, a
     kernel energy path of each generation on them, a two-swarm farm that
-    takes a step and the P6 probe, no ``jax``, no ``lightdock_tpu`` or
-    ``lightdock_tpu.*``, no ``__graft_entry__`` and no ``scripts`` is in
-    ``sys.modules``; ``chip_smoke.py`` imports none of them."""
+    takes a step, the P6 probe and a command-line run on the CPU from the
+    files of ``standin.write_complex`` (PDB files, setup.json, positions,
+    ANM), no ``jax``, no ``lightdock_tpu`` or ``lightdock_tpu.*``, no
+    ``__graft_entry__`` and no ``scripts`` is in ``sys.modules``;
+    ``chip_smoke.py`` imports none of them."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -82,6 +89,15 @@ def test_port_never_imports_jax():
             "                energy_mode='kernel_v1', output_root=None).run_segmented(1)\n"
             "from lightdock_tpu_torch import probes\n"
             "probes.run(['P6'], probes.resolve_device('cpu'), calls=1, say=lambda s: None)\n"
+            "import contextlib, io, os, tempfile\n"
+            "from lightdock_tpu_torch import cli\n"
+            "with tempfile.TemporaryDirectory() as work:\n"
+            "    setup, pos = standin.write_complex(work, 'dna', 12, 8, 3, num_anm=1)\n"
+            "    out = os.path.join(work, 'swarm_0')\n"
+            "    with contextlib.redirect_stdout(io.StringIO()):\n"
+            "        assert cli.main([str(setup), str(pos[0]), '2', 'dna', '--platform', 'cpu',\n"
+            "                         '--anm-dir', work, '--output-dir', out]) == 0\n"
+            "    assert os.path.exists(os.path.join(out, 'gso_1.out'))\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
