@@ -6,7 +6,8 @@
 Builds the CUDA kernels from ``lightdock_tpu_torch/csrc`` with nvcc (one
 process per source, all at once), then drives five paths and a farm, each
 on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed,
-and the command line on the files of such complexes:
+the command line on the files of such complexes, and the sharded paths on
+ranks of ``torch.distributed``:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernel build times with ptxas' registers and spills, and
@@ -165,7 +166,33 @@ and the command line on the files of such complexes:
     gso_20 scores beside the same resume from the sidecar's (printed, with
     the step at which the two trajectories part); ``--profile``
     for 10 steps (the trace written); and ``python -m
-    lightdock_tpu_torch.cli ... 10 dfire`` in a process of its own (exit 0).
+    lightdock_tpu_torch.cli ... 10 dfire`` in a process of its own (exit 0);
+21. spawns 2 ranks of ``torch.distributed`` (``multihost.spawn_local``;
+    gloo when the cards are fewer than the ranks, NCCL otherwise; each
+    rank's card named) that split the receptor atoms of one swarm
+    (``sharded.run_multi_swarm_2d_kernel`` on a 1 x 2 mesh): the 1ppe DFIRE
+    system for 100 steps (one K1 launch a step a rank and no other
+    kernel's) and the 1azp DNA + ANM system for 30 (one K3 launch a step a
+    rank, a per-pose receptor slice); step-1 scores against
+    ``GsoTorchRunner`` (5e-5); the run's poses at steps 10, 50 and 100
+    scored by the single-GPU kernel energy (rtol 5e-5, ``REORDER_ATOL`` on
+    raw sums carried to scores); the kernel against plain on the rank's
+    slice; the two ranks' final states bit-equal; poses/s (min of 3)
+    beside phase 4's;
+22. spawns 4 ranks as a 2 x 2 (swarm, atoms) mesh running the 32 x 200
+    farm through ``run_swarm_farm(n_atom_shards=2, energy_mode='kernel')``
+    for 20 steps: one K1 launch a step a rank, 32 swarm directories each
+    written by one rank, step-1 scores against phase 16's farm (5e-5 with
+    the floor), a row's two ranks bit-equal, aggregate poses/s (min of 3)
+    beside phase 16's;
+23. runs ``lightdock_tpu_torch.cli.main`` on 2 ranks with torchrun's
+    environment on the 32-file glob for 20 steps: one K1 launch a step a
+    rank, each rank writing its 16 swarms, gso_20 against one process on
+    the same files (5e-5; byte-identity printed), rank 0's ``--metrics``
+    counting all 32 swarms.
+
+Ranks that share one card time the sharded paths' correctness, not their
+scaling.
 
 Every kernel's bound (the least time the card could take for the same
 work: the larger of its bytes over 3.35 TB/s and its f32 operations over
@@ -175,9 +202,10 @@ its function reads on this run's data, its other operands, and its
 elements times ``PROBE_OPS``, bfloat16 ones over 134 TFLOP/s).
 
 Fails with a non-zero exit and no result line when there is no CUDA
-device, when it is not run from a checkout, or when any check fails.  The
-last line of its output is the JSON device record; the line before it
-lists the kernels.
+device, when it is not run from a checkout, or when any check fails (a
+rank's failure included).  The last line of its output is the JSON device
+record; the line before it lists the kernels, with each kernel's launches
+a rank in the sharded phases (``rank_launches``).
 """
 
 from __future__ import annotations
@@ -231,6 +259,13 @@ EV_BATCH = 6400                    # poses of the elec/vdw kernels' batch (32 x 
 # models the kernels' slot on the CPU), and around each elec/vdw cutoff
 # where phases 6 and 15 hold K3 and K5 to plain.
 EDGE_ULPS = 64
+# Phases 21-23: ranks of torch.distributed, spawned on this host.  Receptor
+# atoms over 2 ranks (phase 21: DFIRE 100 steps, DNA + ANM 30; the run's own
+# poses rescored at SHARD_CHECK_STEPS), a 2 x 2 (swarm, atoms) mesh (phase 22)
+# and the command line on 2 ranks (phase 23), both SHARD_FARM_STEPS steps.
+SHARD_RANKS, SHARD_GRID, SHARD_DNA_STEPS = 2, (2, 2), 30
+SHARD_FARM_STEPS, SHARD_CHECK_STEPS = 20, (10, 50, 100)
+RANK_TIMEOUT = 300                 # seconds a collective waits for a peer
 # operations an element (P1: an element-rep; P2-P3: a pair; P4-P6: an
 # output element and rep) of each probe variant, counting a compare, a
 # select, an add, a multiply, a sqrt and a cast one each (loads, index
@@ -582,6 +617,7 @@ def timing(path, main, card, phases, plain_reps=10):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     best = min(times)
+    path.poses_per_s = N_POSES * STEPS / best
     say(f"phase {phases[0]}: [{card}] {path.label}: {STEPS} GSO steps x "
         f"{N_POSES} poses: min of 5 {best:.4f} s = {N_POSES * STEPS / best:.1f} "
         f"poses/s (all: {', '.join(f'{x:.4f}' for x in times)})")
@@ -1127,7 +1163,8 @@ def farm_phases(card, counters, occ):
     runs and K1 against plain on its inputs, K1 a call on them with its
     bound, registers and resident warps (``occ``), the farm's poses/s and
     profile, then 4 swarms in the v1 mode and K4 against plain on theirs.
-    Returns K1's and K4's max errors and K4's launches."""
+    Returns K1's and K4's max errors, the farm's step-1 scores (S, G) and
+    its poses/s."""
     import numpy as np
     import torch
 
@@ -1250,7 +1287,7 @@ def farm_phases(card, counters, occ):
           "v1 farm step-1 scores differ from the kernel-mode farm's")
     k4_err, _ = farm_kernel_cases(v1, 17, f"farm {FARM_V1_SWARMS} x {N_POSES} kernel_v1",
                                   k4.dfire_pairs_v1, k4.dfire_pairs_v1_plain)
-    return k1_err, k4_err, launches["dfire_pairs_v1"]
+    return k1_err, k4_err, step1, n_all * STEPS / best
 
 
 def probe_table_entries(v, t):
@@ -1985,10 +2022,399 @@ def cli_rest_phase(card, counters):
               f"python -m lightdock_tpu_torch.cli exit {proc.returncode}: {proc.stderr[-2000:]}")
 
 
-def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+# -- phases 21-23: ranks of torch.distributed on the card --------------------
+
+def pair_kernels():
+    """The five pair kernels' wrappers, whose ``launches`` the phases count."""
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+    from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
+    from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
+    from lightdock_tpu_torch.ops import elec_vdw_pairs_v1 as k5
+    return (dp.dfire_pairs, dp.dfire_pairs_worklist, ev.elec_vdw_pairs,
+            k4.dfire_pairs_v1, k5.elec_vdw_pairs_v1)
+
+
+def rank_start(rank, world, phase):
+    """A rank's start: the process group from the environment
+    ``spawn_local`` set (NCCL where every rank has a card, else gloo: NCCL
+    refuses two ranks on one device) and the rank's card, named
+    explicitly.  Returns (backend, device)."""
+    import torch
+
+    from lightdock_tpu_torch.parallel.multihost import maybe_initialize_distributed
+
+    cards = torch.cuda.device_count()
+    check(cards > 0, f"phase {phase} rank {rank}: no CUDA device")
+    backend = "nccl" if cards >= world else "gloo"
+    maybe_initialize_distributed(backend, timeout=RANK_TIMEOUT)
+    return backend, f"cuda:{rank % cards}"
+
+
+def record_writes():
+    """The paths of the snapshots this process writes from now on (the
+    writer of ``parallel.multihost`` wrapped)."""
+    from lightdock_tpu_torch.parallel import multihost
+
+    written, write = [], multihost.write_gso_output
+
+    def recorded(path, *args, **kwargs):
+        written.append(str(path))
+        return write(path, *args, **kwargs)
+
+    multihost.write_gso_output = recorded
+    return written
+
+
+def score_floor(method) -> float:
+    """``REORDER_ATOL`` on raw sums carried to scores: DFIRE's scale, and a
+    bias that at most triples a score (a fraction of each side's restraints
+    added)."""
+    from lightdock_tpu_torch import constants as C
+    return REORDER_ATOL * (C.DFIRE_SCALE if method == "dfire" else 1.0) * 3
+
+
+def spawn(fn, world, *args):
+    """``fn(rank, *args)`` on ``world`` ranks (``spawn_local``); a rank that
+    fails fails the phase."""
+    from lightdock_tpu_torch.parallel.multihost import spawn_local
+    try:
+        spawn_local(fn, world, *args)
+    except Exception as exc:  # the child's own FAIL line is on stderr
+        fail(f"{fn.__name__} on {world} ranks: {type(exc).__name__}: {exc}")
+
+
+def sharded_swarm_rank(rank, out):
+    """Phase 21 on one rank: one swarm, the receptor atoms over
+    ``SHARD_RANKS`` ranks (``sharded.run_multi_swarm_2d_kernel`` on a
+    (1, 2) mesh), for the 1ppe DFIRE system (100 steps, K1) and the 1azp
+    DNA + ANM system (30 steps, K3 with a per-pose receptor)."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.engine.gso import swarms_step
+    from lightdock_tpu_torch.engine.runner import GsoTorchRunner, make_energy
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+    from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
+    from lightdock_tpu_torch.parallel import sharded
+    from lightdock_tpu_torch.parallel.mesh import make_mesh
+    from lightdock_tpu_torch.parallel.multihost import (barrier, stack_swarm_states,
+                                                        swarm_randoms)
+
+    backend, device = rank_start(rank, SHARD_RANKS, 21)
+    mesh = make_mesh(n_swarm=1, n_atoms=SHARD_RANKS, device=device)
+    counters = pair_kernels()
+    f32 = torch.float32
+    result = {"backend": backend, "device": str(mesh.device), "coord": mesh.coord}
+    cases = (("1ppe DFIRE", standin.toy_system(*DFIRE_ATOMS, N_POSES), STEPS,
+              dp.dfire_pairs, dp.dfire_pairs_plain),
+             ("1azp DNA + ANM", standin.toy_system(*DNA_ATOMS, N_POSES, num_anm=DNA_ANM,
+                                                   method="dna"),
+              SHARD_DNA_STEPS, ev.elec_vdw_pairs, ev.elec_vdw_pairs_plain))
+    for label, (params, pos, k), steps, kernel, plain in cases:
+        label = f"{label} on rank {rank} of {SHARD_RANKS}"
+        states = stack_swarm_states([pos], k > 0, k, k, f32, mesh.device)
+        randoms = torch.as_tensor(swarm_randoms(SEED, steps, 1, N_POSES), dtype=f32,
+                                  device=mesh.device)
+        for c in counters:
+            c.launches = 0
+        final, outs = sharded.run_multi_swarm_2d_kernel(mesh, params, states, randoms)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        only(launches, kernel.__name__, steps, f"phase 21: {label}")
+        for name, x in final._asdict().items():
+            if x.is_floating_point():
+                check(bool(torch.isfinite(x).all()), f"phase 21: {label}: non-finite {name}")
+        # Step 1 against the single-GPU runner from the same positions.
+        _, single = GsoTorchRunner(params, pos, SEED, k > 0, k, k, dtype=f32,
+                                   device=mesh.device).run(1)
+        step1 = float((outs.scoring[0, 0] - single.scoring[0]).abs().max())
+        check(bool(torch.allclose(outs.scoring[0, 0], single.scoring[0], rtol=RTOL,
+                                  atol=ATOL)),
+              f"phase 21: {label}: step-1 scores differ from GsoTorchRunner's by {step1:.3e}")
+        # The run's own poses at later steps, scored by the single-GPU kernel
+        # energy: the poses a step scored are the previous step's output.
+        tp, energy_fn = make_energy(params, "kernel", mesh.device, f32)
+        along = {}
+        for s in (x for x in SHARD_CHECK_STEPS if x <= steps):
+            pose = [getattr(outs, f)[s - 2, 0] for f in ("t", "q", "a_rec", "a_lig")]
+            ref = energy_fn(tp, *pose)
+            ours = outs.scoring[s - 1, 0]
+            along[s] = float((ours - ref).abs().max())
+            check(bool(torch.allclose(ours, ref, rtol=RTOL, atol=score_floor(params.method))),
+                  f"phase 21: {label}: step {s} scores differ from the single-GPU "
+                  f"energy of the same poses by {along[s]:.3e}")
+        # The kernel against its plain version on this rank's slice, at the
+        # step-1 poses (after the counts were read).
+        p_loc, shard_fn = sharded.make_kernel_atom_sharded_fns(params, mesh)
+        args, kwargs = shard_fn.kernel_args(p_loc, *(x[0] for x in (
+            states.t, states.q, states.a_rec, states.a_lig)))
+        got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+        plain_err = float((got[0] - want[0]).abs().max())
+        check(bool(torch.allclose(got[0], want[0], rtol=RTOL, atol=ATOL))
+              and all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])
+                      if a is not None),
+              f"phase 21: {label}: {kernel.__name__} differs from plain on the shard")
+        torch.save({f: x.cpu() for f, x in final._asdict().items()},
+                   out / f"{'dfire' if kernel is dp.dfire_pairs else 'dna'}_rank{rank}.pt")
+        result[label] = dict(launches=launches[kernel.__name__], step1=step1, along=along,
+                             plain_err=plain_err, shard_atoms=int(p_loc.rec_coords.shape[0]))
+        say(f"phase 21: {label} ({backend}, {mesh.device}, mesh coordinate {mesh.coord}): "
+            f"{steps} steps, kernel launches {launches}; receptor slice "
+            f"{p_loc.rec_coords.shape[0]} atoms; step-1 scores against GsoTorchRunner "
+            f"max|diff| {step1:.3e}; the run's poses scored by the single-GPU kernel "
+            f"energy, max|diff| by step {along}; {kernel.__name__} against plain on the "
+            f"slice {plain_err:.3e}")
+    # Poses/s of the DFIRE run, min of 3: the steps alone, every rank between
+    # two barriers.
+    params, pos, _ = cases[0][1]
+    states = stack_swarm_states([pos], False, 0, 0, f32, mesh.device)
+    randoms = torch.as_tensor(swarm_randoms(SEED, STEPS, 1, N_POSES), dtype=f32,
+                              device=mesh.device)
+    p_loc, energy_fn = sharded.make_kernel_atom_sharded_fns(params, mesh)
+    times = []
+    for _ in range(3):
+        st = states
+        barrier(mesh.device)
+        t0 = time.perf_counter()
+        for r in randoms:
+            st, _ = swarms_step(p_loc, st, r, energy_fn)
+        torch.cuda.synchronize()
+        barrier(mesh.device)
+        times.append(time.perf_counter() - t0)
+    result["poses_per_s"] = N_POSES * STEPS / min(times)
+    result["times"] = times
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def grid_farm_rank(rank, out):
+    """Phase 22 on one rank: the 32-swarm farm on a (2, 2) mesh through
+    ``run_swarm_farm(n_atom_shards=2, energy_mode='kernel')``, then the
+    same steps timed through ``sharded.run_multi_swarm_2d_kernel``."""
+    import torch
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.parallel import sharded
+    from lightdock_tpu_torch.parallel.farm import run_swarm_farm
+    from lightdock_tpu_torch.parallel.mesh import make_mesh
+    from lightdock_tpu_torch.parallel.multihost import (barrier, stack_swarm_states,
+                                                        swarm_randoms)
+
+    n_swarm, n_atoms = SHARD_GRID
+    backend, device = rank_start(rank, n_swarm * n_atoms, 22)
+    mesh = make_mesh(n_swarm=n_swarm, n_atoms=n_atoms, device=device)
+    params, pos, _ = standin.toy_system(*DFIRE_ATOMS, FARM_SWARMS * N_POSES)
+    swarms = [pos[i * N_POSES:(i + 1) * N_POSES] for i in range(FARM_SWARMS)]
+    counters = pair_kernels()
+    written = record_writes()
+    for c in counters:
+        c.launches = 0
+    barrier(mesh.device)
+    t0 = time.perf_counter()
+    run_swarm_farm(params, swarms, list(range(FARM_SWARMS)), SEED, SHARD_FARM_STEPS,
+                   False, 0, 0, torch.float32, output_root=str(out / "farm"),
+                   energy_mode="kernel", n_atom_shards=n_atoms, mesh=mesh)
+    torch.cuda.synchronize()
+    barrier(mesh.device)
+    run_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    only(launches, "dfire_pairs", SHARD_FARM_STEPS, f"phase 22 rank {rank}")
+    block = mesh.swarm_block(FARM_SWARMS)
+    states = stack_swarm_states(swarms[block.start:block.stop], False, 0, 0, torch.float32,
+                                mesh.device)
+    randoms = torch.as_tensor(swarm_randoms(SEED, SHARD_FARM_STEPS, len(block), N_POSES),
+                              dtype=torch.float32, device=mesh.device)
+    times = []
+    for _ in range(3):
+        barrier(mesh.device)
+        t0 = time.perf_counter()
+        final, _ = sharded.run_multi_swarm_2d_kernel(mesh, params, states, randoms)
+        torch.cuda.synchronize()
+        barrier(mesh.device)
+        times.append(time.perf_counter() - t0)
+    torch.save({f: x.cpu() for f, x in final._asdict().items()}, out / f"final_rank{rank}.pt")
+    say(f"phase 22: rank {rank} of {n_swarm * n_atoms} ({backend}, {mesh.device}, mesh "
+        f"coordinate {mesh.coord}, swarms {block.start}-{block.stop - 1}): "
+        f"{SHARD_FARM_STEPS} steps in {run_s:.3f} s with the writes; kernel launches "
+        f"{launches}; {len(written)} snapshots written")
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        backend=backend, device=str(mesh.device), coord=mesh.coord,
+        block=[block.start, block.stop], launches=launches["dfire_pairs"],
+        written=written, run_s=run_s, times=times)))
+
+
+def cli_rank(rank, work, argv):
+    """Phase 23 on one rank: ``lightdock_tpu_torch.cli.main`` in ``work``
+    with torchrun's environment for the rank: the command line starts the
+    process group itself (gloo where two ranks share the card)."""
+    from lightdock_tpu_torch import cli
+
+    counters = pair_kernels()
+    written = record_writes()
+    for c in counters:
+        c.launches = 0
+    out = io.StringIO()
+    with working_directory(work), contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    launches = {c.__name__: c.launches for c in counters}
+    check(rc == 0, f"phase 23 rank {rank}: exit {rc}")
+    only(launches, "dfire_pairs", SHARD_FARM_STEPS, f"phase 23 rank {rank}")
+    lines = [x for x in out.getvalue().splitlines() if x.startswith(("Running", "Rank", "Done"))]
+    say(f"phase 23: rank {rank}: kernel launches {launches}; {len(written)} snapshots "
+        "written; its output: " + " | ".join(lines))
+    (work / f"rank{rank}.json").write_text(json.dumps(dict(
+        launches=launches["dfire_pairs"], written=written, said=lines)))
+
+
+def final_states_equal(out, a, b, prefix):
+    import torch
+    x, y = (torch.load(out / f"{prefix}_rank{r}.pt") for r in (a, b))
+    return all(torch.equal(x[f], y[f]) for f in x)
+
+
+def sharded_swarm_phase(card, dfire_poses_s):
+    """Phase 21 (``sharded_swarm_rank`` on 2 ranks); returns K1's and K3's
+    launches a rank and their max error against plain on a slice."""
+    with tempfile.TemporaryDirectory() as out:
+        out = pathlib.Path(out)
+        t0 = time.perf_counter()
+        spawn(sharded_swarm_rank, SHARD_RANKS, out)
+        phase_s = time.perf_counter() - t0
+        res = [json.loads((out / f"rank{r}.json").read_text()) for r in range(SHARD_RANKS)]
+        same = {tag: final_states_equal(out, 0, 1, tag) for tag in ("dfire", "dna")}
+    say(f"phase 21: {SHARD_RANKS} ranks ({res[0]['backend']}; devices "
+        f"{[r['device'] for r in res]}) in {phase_s:.1f} s with their start; final states "
+        f"of the two ranks bit-equal: 1ppe DFIRE {same['dfire']}, 1azp DNA + ANM "
+        f"{same['dna']}")
+    check(all(same.values()), "phase 21: the ranks' final states differ")
+    best = [r["poses_per_s"] for r in res]
+    say(f"phase 21: [{card}] 1ppe DFIRE, receptor atoms over {SHARD_RANKS} ranks sharing "
+        f"the card: {STEPS} GSO steps x {N_POSES} poses, min of 3 {min(best):.1f} poses/s "
+        f"(rank 0's runs {', '.join(f'{x:.4f}' for x in res[0]['times'])} s); phase 4 "
+        f"on one rank {dfire_poses_s:.1f} poses/s.  Ranks on one card time the "
+        "correctness of the path, not its scaling")
+    labels = {"dfire_pairs": "1ppe DFIRE", "elec_vdw_pairs": "1azp DNA + ANM"}
+    return {name: ([r[f"{label} on rank {i} of {SHARD_RANKS}"]["launches"]
+                    for i, r in enumerate(res)],
+                   max(r[f"{label} on rank {i} of {SHARD_RANKS}"]["plain_err"]
+                       for i, r in enumerate(res)))
+            for name, label in labels.items()}
+
+
+def grid_farm_phase(card, farm_step1, farm_poses_s):
+    """Phase 22 (``grid_farm_rank`` on a (2, 2) mesh); returns K1's
+    launches a rank."""
+    import numpy as np
+
+    n_swarm, n_atoms = SHARD_GRID
+    world = n_swarm * n_atoms
+    with tempfile.TemporaryDirectory() as out:
+        out = pathlib.Path(out)
+        t0 = time.perf_counter()
+        spawn(grid_farm_rank, world, out)
+        phase_s = time.perf_counter() - t0
+        res = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+        farm = out / "farm"
+        dirs = sorted(q.name for q in farm.iterdir())
+        step1 = np.stack([sidecar_scores(farm / f"swarm_{i}", 1) for i in range(FARM_SWARMS)])
+        same = [final_states_equal(out, s * n_atoms, s * n_atoms + 1, "final")
+                for s in range(n_swarm)]
+    writers = {}
+    for r, x in enumerate(res):
+        for path in x["written"]:
+            writers.setdefault(pathlib.Path(path).parent.name, set()).add(r)
+    one_writer = (sorted(writers) == dirs and all(len(w) == 1 for w in writers.values()))
+    err = float(np.abs(step1 - farm_step1).max())
+    floor = score_floor("dfire")
+    close = bool(np.allclose(step1, farm_step1, rtol=RTOL, atol=floor))
+    best = min(max(x["times"][i] for x in res) for i in range(3))
+    n_all = FARM_SWARMS * N_POSES
+    say(f"phase 22: {n_swarm} x {n_atoms} mesh of {world} ranks ({res[0]['backend']}; "
+        f"devices {[x['device'] for x in res]}) in {phase_s:.1f} s with their start; "
+        f"`run_swarm_farm(n_atom_shards={n_atoms}, energy_mode='kernel')`: "
+        f"{len(dirs)} swarm directories, each written by one rank {one_writer} "
+        f"(writers: rank 0 {len(res[0]['written'])}, rank 1 {len(res[1]['written'])}, "
+        f"rank 2 {len(res[2]['written'])}, rank 3 {len(res[3]['written'])} snapshots); "
+        f"step-1 scores against phase 16's farm max|diff| {err:.3e} (rtol {RTOL:g}, atol "
+        f"{floor:.3g}: {close}); the two ranks of each row bit-equal {same}")
+    say(f"phase 22: [{card}] {FARM_SWARMS} x {N_POSES} farm on the {n_swarm} x {n_atoms} "
+        f"mesh: {SHARD_FARM_STEPS} GSO steps x {n_all} poses, min of 3 (the slowest rank) "
+        f"{best:.4f} s = {n_all * SHARD_FARM_STEPS / best:.1f} aggregate poses/s; phase 16 "
+        f"on one rank {farm_poses_s:.1f}.  Four processes share one H100: this times the "
+        "path's correctness, not its scaling")
+    check(dirs == sorted(f"swarm_{i}" for i in range(FARM_SWARMS)) and one_writer,
+          f"phase 22: swarm directories {dirs[:4]}..., writers {writers}")
+    check(close, "phase 22: step-1 scores differ from phase 16's farm")
+    check(all(same), "phase 22: the ranks of a mesh row ended with different states")
+    return [x["launches"] for x in res]
+
+
+def cli_ranks_phase(card, counters):
+    """Phase 23: the command line under ``SHARD_RANKS`` ranks (swarms only)
+    on the 32-file glob, against one process on the same files; returns
+    K1's launches a rank."""
+    import numpy as np
+
+    from lightdock_tpu_torch import standin
+
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        setup, _ = standin.write_complex(work, "dfire", *DFIRE_ATOMS, N_POSES,
+                                         n_swarms=FARM_SWARMS, seed=SEED)
+        glob = str(work / "initial_positions_*.dat")
+        files = sorted(str(f.name) for f in work.glob("initial_positions_*.dat"))
+        one, ranks = work / "one", work / "ranks"
+        one.mkdir()
+        ranks.mkdir()
+        launches, one_s, _ = cli_run(counters, one, [setup, glob, SHARD_FARM_STEPS, "dfire"])
+        only(launches, "dfire_pairs", SHARD_FARM_STEPS, "phase 23: one process")
+        metrics = ranks / "metrics.jsonl"
+        t0 = time.perf_counter()
+        spawn(cli_rank, SHARD_RANKS, ranks, [setup, glob, SHARD_FARM_STEPS, "dfire",
+                                             "--metrics", metrics])
+        ranks_s = time.perf_counter() - t0
+        res = [json.loads((ranks / f"rank{r}.json").read_text()) for r in range(SHARD_RANKS)]
+        a = np.stack([sidecar_scores(ranks / f"swarm_{i}", SHARD_FARM_STEPS)
+                      for i in range(FARM_SWARMS)])
+        b = np.stack([sidecar_scores(one / f"swarm_{i}", SHARD_FARM_STEPS)
+                      for i in range(FARM_SWARMS)])
+        same = all((ranks / f"swarm_{i}" / f"gso_{s}.out").read_text()
+                   == (one / f"swarm_{i}" / f"gso_{s}.out").read_text()
+                   for i in range(FARM_SWARMS) for s in (1, 10, SHARD_FARM_STEPS))
+        summary = json.loads(metrics.read_text().splitlines()[-1])
+    per_rank = [sorted({int(pathlib.Path(p).parent.name[6:]) for p in x["written"]})
+                for x in res]
+    # The command line takes the glob's files in sorted order (initial_positions_0,
+    # _1, _10, ...), and rank r its r-th block of them.
+    ids = [int(f.rsplit("_", 1)[1].split(".")[0]) for f in files]
+    half = FARM_SWARMS // SHARD_RANKS
+    want = [sorted(ids[:half]), sorted(ids[half:])]
+    err = float(np.abs(a - b).max())
+    close = bool(np.allclose(a, b, rtol=RTOL, atol=ATOL)) and bool(np.isfinite(a).all())
+    say(f"phase 23: `lightdock-tpu-torch setup.json 'initial_positions_*.dat' "
+        f"{SHARD_FARM_STEPS} dfire --metrics` on {SHARD_RANKS} ranks in {ranks_s:.1f} s "
+        f"with their start ({one_s:.3f} s in one process): rank 0 wrote swarms "
+        f"{per_rank[0]}, rank 1 {per_rank[1]}; gso_{SHARD_FARM_STEPS} "
+        f"scores against one process max|diff| {err:.3e} (allclose {close}); gso_1, gso_10 "
+        f"and gso_{SHARD_FARM_STEPS} byte-identical {same} (a rank's call scores "
+        f"{FARM_SWARMS // SHARD_RANKS} swarms' poses, one process's {FARM_SWARMS}); rank 0's "
+        f"metrics: {summary['total_poses_scored']} poses, {summary['poses_per_s']} poses/s "
+        f"[{card}]")
+    check(per_rank == want, f"phase 23: swarms written {per_rank}, expected {want}")
+    check(close, "phase 23: gso_20 scores differ from one process's")
+    check(summary["total_poses_scored"] == FARM_SWARMS * N_POSES * SHARD_FARM_STEPS,
+          f"phase 23: rank 0's metrics count {summary['total_poses_scored']} poses")
+    return [x["launches"] for x in res]
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
+           rank_launches=None):
+    """A kernel's entry of the kernels line; ``rank_launches`` maps each
+    sharded phase to the kernel's launches on each of its ranks."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
+            "rank_launches": rank_launches or {}}
 
 
 def main() -> int:
@@ -2043,8 +2469,7 @@ def main() -> int:
         f"{k} {regs} registers, {local} B local, {warps} resident warps an SM"
         for k, (regs, local, warps) in occ_k4.items()))
 
-    counters = (dp.dfire_pairs, dp.dfire_pairs_worklist, ev.elec_vdw_pairs,
-                k4.dfire_pairs_v1, k5.elec_vdw_pairs_v1)
+    counters = pair_kernels()
     gen = torch.Generator(device="cuda").manual_seed(7)
     rng = np.random.RandomState(SEED)
 
@@ -2138,7 +2563,7 @@ def main() -> int:
     k5_err = max(k5_err, err)
 
     # -- 16-17. the farm -------------------------------------------------------
-    err, err_v1, _ = farm_phases(card, counters, occ)
+    err, err_v1, farm_step1, farm_poses_s = farm_phases(card, counters, occ)
     k1_err, k4_err = max(k1_err, err), max(k4_err, err_v1)
 
     # -- 18. the table-selection probes P1-P6 ------------------------------------
@@ -2147,6 +2572,15 @@ def main() -> int:
     # -- 19-20. the command line ------------------------------------------------
     cli_path_phase(card, counters)
     cli_rest_phase(card, counters)
+
+    # -- 21-23. ranks of torch.distributed on the card ---------------------------
+    by_rank = sharded_swarm_phase(card, dfire.poses_per_s)
+    k1_err = max(k1_err, by_rank["dfire_pairs"][1])
+    k3_err = max(k3_err, by_rank["elec_vdw_pairs"][1])
+    k1_sites = {"phase 21": by_rank["dfire_pairs"][0],
+                "phase 22": grid_farm_phase(card, farm_step1, farm_poses_s),
+                "phase 23": cli_ranks_phase(card, counters)}
+    k3_sites = {"phase 21": by_rank["elec_vdw_pairs"][0]}
 
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
@@ -2177,9 +2611,11 @@ def main() -> int:
     pallas = "lightdock_tpu/ops/pallas_energy.py"
     say(json.dumps({"kernels": [
         record("dfire_pairs", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
-               f"{pallas}:1088", k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound),
+               f"{pallas}:1088", k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound,
+               rank_launches=k1_sites),
         record("elec_vdw_pairs", "lightdock_tpu_torch/csrc/elec_vdw_pairs.cu",
-               f"{pallas}:1325", k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound),
+               f"{pallas}:1325", k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound,
+               rank_launches=k3_sites),
         record("dfire_pairs_worklist", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
                f"{pallas}:1115", k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
         record("dfire_pairs_v1", "lightdock_tpu_torch/csrc/dfire_pairs_v1.cu",

@@ -7,7 +7,11 @@ reference binary and with ``lightdock-tpu``:
 Port of ``lightdock_tpu/cli.py``.  Outputs go to ``./swarm_N/gso_{step}.out``
 (created when missing); ANM ``.npy`` files are read from the working
 directory.  A glob or a comma-separated list of positions files runs every
-swarm in one farm (``parallel.farm.run_swarm_farm``).
+swarm in one farm (``parallel.farm.run_swarm_farm``); under torchrun the
+farm's swarms split over the ranks, each on its own card, and each rank
+writes its own swarms:
+
+    torchrun --nproc-per-node N -m lightdock_tpu_torch.cli setup.json 'initial_positions_*.dat' 100 dfire
 
 The run is on the CUDA card unless ``--platform cpu`` is given; without a
 card it raises (``engine.runner.cuda_device``) and never carries on on the
@@ -188,43 +192,72 @@ def main(argv=None) -> int:
 
 
 def run_multi(args, positions_files, log, device, dtype_name) -> int:
-    """Every swarm in one farm on one device (``parallel.farm``)."""
+    """Every swarm in one farm (``parallel.farm``), its swarms split over
+    the ranks of torchrun's world where there is one
+    (``parallel.multihost.maybe_initialize_distributed``; ``--platform
+    cpu`` takes the gloo backend).  Only rank 0 writes ``--metrics``,
+    counting every rank's swarms, and profiles with ``--profile``."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import maybe_initialize_distributed
+
+    was_initialized = dist.is_initialized()
+    maybe_initialize_distributed("gloo" if device.type == "cpu" else None)
+    try:
+        return _run_multi(args, positions_files, log, make_mesh(device=device),
+                          dtype_name)
+    finally:
+        if dist.is_initialized() and not was_initialized:
+            dist.destroy_process_group()
+
+
+def _run_multi(args, positions_files, log, mesh, dtype_name) -> int:
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from .parallel.farm import run_swarm_farm
     from .simulation import load_simulation
     from .utils.metrics import RunMetrics
     from .utils.positions import parse_positions, parse_swarm_id
 
+    device = mesh.device
     dtype = torch.float64 if dtype_name == "float64" else torch.float32
     sim = load_simulation(args.setup, positions_files[0], args.method,
                           anm_dir=args.anm_dir)
     swarm_ids = [parse_swarm_id(p) for p in positions_files]
     positions_list = [parse_positions(p) for p in positions_files]
     print(f"Running {len(positions_list)} swarms x "
-          f"{positions_list[0].shape[0]} glowworms on 1 device(s) [{device.type}]")
+          f"{positions_list[0].shape[0]} glowworms on {mesh.size} device(s) "
+          f"[{device.type}]")
+    if mesh.size > 1:
+        block = mesh.swarm_block(len(positions_list))
+        print(f"Rank {mesh.rank} of {mesh.size} ({dist.get_backend()}) on {device}: "
+              f"{len(block)} swarms, ids {', '.join(str(swarm_ids[i]) for i in block)}")
 
     n_pairs = sim.receptor.num_atoms * sim.ligand.num_atoms
     g = positions_list[0].shape[0]
     chunk = (args.energy_chunk if args.energy_chunk is not None
              else pick_energy_chunk(n_pairs, g * len(positions_list),
                                     np.dtype(dtype_name).itemsize))
-    metrics = RunMetrics(args.metrics, context={
+    # Every rank keeps metrics (the farm waits for all at a segment's end);
+    # rank 0 writes them.
+    metrics = RunMetrics(args.metrics if mesh.rank == 0 else None, context={
         "backend": device.type, "dtype": dtype_name, "method": sim.method,
         "pairs": n_pairs, "glowworms": g, "swarms": len(positions_list)})
     output_root = args.output_dir or "."
 
     t0 = time.time()
     try:
-        with profiled(args.profile, device, output_root, log):
+        with profiled(args.profile and mesh.rank == 0, device, output_root, log):
             run_swarm_farm(sim.batch_params(dtype=np.dtype(dtype_name)),
                            positions_list, swarm_ids, sim.seed, args.steps,
                            sim.use_anm, sim.setup.anm_rec, sim.setup.anm_lig,
                            dtype, output_root=output_root,
                            energy_chunk=chunk, energy_mode=args.energy_mode,
                            segment=max(1, args.steps_per_save),
-                           metrics=metrics, resume=bool(args.resume), device=device)
+                           metrics=metrics, resume=bool(args.resume), mesh=mesh)
         summary = metrics.summary()
     finally:
         metrics.close()

@@ -87,7 +87,8 @@ def frame_center(params: BatchScoringParams) -> np.ndarray:
 def make_kernel_energy_fn(params: BatchScoringParams, device,
                           dtype: torch.dtype = torch.float32,
                           cull: bool = True, worklist: Optional[bool] = None,
-                          kernel: str = "auto"):
+                          kernel: str = "auto", shard_parts: bool = False,
+                          center=None, rec_bounds=None):
     """Build ``energy_fn(p, t, q, a_rec, a_lig, moved=None,
     prev_scoring=None) -> (G,)``.
 
@@ -104,6 +105,19 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
     v1 DFIRE needs the step tables (``dfire_mode='steps'``) and reads
     ``p.dfire_dq``, float32 or bfloat16.  The chosen kernel's wrapper is
     ``energy_fn.kernel``.
+
+    ``shard_parts`` builds the receptor-atom-sharded variant
+    (``parallel.sharded.make_kernel_atom_sharded_fns``; JAX's
+    ``shard_parts=True``): ``params`` holds one shard of the receptor, and
+    ``parts_fn(p, t, q, a_rec, a_lig, moved=None) -> (raw, iface_rec,
+    iface_lig)`` returns the kernel's raw sums and the flags trimmed to the
+    shard's Nr and the Nl atoms (None without restraints or membrane), in
+    the caller's pose order, before the affine finish and the bias; a pose
+    that ``moved`` leaves out scores no pair, and the caller keeps its
+    stored score after combining the shards.  ``center`` (the frame, 3
+    coordinates) and ``rec_bounds`` (the receptor's per-mode displacement
+    bounds) default to ``params``' own; a shard takes the whole receptor's,
+    so every shard works in one frame with the same cull slack.
     """
     dfire = params.method == "dfire"
     rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
@@ -170,10 +184,22 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         # from elec-only far ones.
         cuts = [C.ELEC_DIST_CUTOFF, C.INTERFACE_CUTOFF, C.VDW_DIST_CUTOFF]
     rc, rh, lc, lh = tensor(rc), tensor(rh), tensor(lc), tensor(lh)
-    center = tensor(frame_center(params))
+    center = tensor(frame_center(params) if center is None else center)
     # Per-mode displacement bounds widen the boxes by each pose's slack.
-    rec_bounds = tensor(anm_mode_bounds(params.rec_nmodes))
+    rec_bounds = tensor(anm_mode_bounds(params.rec_nmodes) if rec_bounds is None
+                        else rec_bounds)
     lig_bounds = tensor(anm_mode_bounds(params.lig_nmodes))
+
+    def pose_order(t, moved):
+        """(order, inverse): poses moved first (where ``moved`` is given),
+        Morton order of the translation within each group."""
+        key = morton_key(t)
+        if moved is not None:
+            key = key + torch.logical_not(moved).to(torch.int64) * (1 << 32)
+        order = torch.sort(key, stable=True).indices
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        return order, inv
 
     def energy_fn(p: BatchScoringParams, t, q, a_rec, a_lig,
                   moved=None, prev_scoring=None):
@@ -181,19 +207,27 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         order of the translation, and come back in their own order: unmoved
         poses fill whole chunks the kernel skips (their stored score passes
         through), and coherent chunks keep the chunk cull bits tight."""
-        key = morton_key(t)
-        if moved is not None and prev_scoring is not None:
-            # Moved poses first, Morton order within each group.
-            key = key + torch.logical_not(moved).to(torch.int64) * (1 << 32)
-        order = torch.sort(key, stable=True).indices
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(order.shape[0], device=order.device)
-        gate = moved[order] if moved is not None and prev_scoring is not None else None
+        if prev_scoring is None:
+            moved = None
+        order, inv = pose_order(t, moved)
+        gate = moved[order] if moved is not None else None
         scores = _compute(p, t[order], q[order], a_rec[order], a_lig[order],
                           gate)[inv]
         if gate is None:
             return scores
         return torch.where(moved, scores, prev_scoring)
+
+    def parts_fn(p: BatchScoringParams, t, q, a_rec, a_lig, moved=None):
+        """(raw (G,), iface_rec (G, Nr) or None, iface_lig (G, Nl) or None)
+        of this shard, in the caller's pose order (see ``shard_parts``)."""
+        order, inv = pose_order(t, moved)
+        gate = moved[order] if moved is not None else None
+        args, kwargs = kernel_args(p, t[order], q[order], a_rec[order],
+                                   a_lig[order], gate)
+        raw, ifr, ifl = kernel(*args, **kwargs)
+        if ifr is None:
+            return raw[inv], None, None
+        return raw[inv], ifr[inv, :nr], ifl[inv, :nl]
 
     def kernel_args(p: BatchScoringParams, t, q, a_rec, a_lig, moved=None):
         """(args, kwargs) of the kernel call (``energy_fn.kernel``) that
@@ -245,9 +279,10 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
             return score
         return bias(p, score, ifr[:, :nr], ifl[:, :nl])
 
-    energy_fn.kernel_args = kernel_args
-    energy_fn.kernel = kernel
-    return energy_fn
+    fn = parts_fn if shard_parts else energy_fn
+    fn.kernel_args = kernel_args
+    fn.kernel = kernel
+    return fn
 
 
 def pose_chunked_energy(energy_fn, max_chunk: Optional[int] = None):

@@ -167,15 +167,16 @@ def test_farm_resume_survives_missing_sidecar(tmp_path, caplog):
 
 def test_run_swarm_farm_entry(tmp_path, monkeypatch):
     """run_swarm_farm writes every swarm's directory (and only those),
-    refuses receptor-atom sharding, and runs on the card unless asked for
-    the CPU."""
+    refuses receptor-atom sharding in one process (it needs a rank for each
+    shard; tests/test_torch_sharded_farm.py runs it on ranks), and runs on
+    the card unless asked for the CPU."""
     params, positions_list = _system(n_swarms=2)
     kw = dict(seed=1, steps=10, dtype=torch.float64, **ANM)
     run_swarm_farm(from_reference(params), positions_list, [0, 9],
                    output_root=str(tmp_path), device="cpu", **kw)
     assert sorted(p.name for p in tmp_path.iterdir()) == ["swarm_0", "swarm_9"]
     assert (tmp_path / "swarm_9" / "gso_10.out").exists()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="mesh over 1 ranks"):
         run_swarm_farm(from_reference(params), positions_list, [0, 1],
                        output_root=str(tmp_path), n_atom_shards=2, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

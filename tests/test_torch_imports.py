@@ -45,7 +45,9 @@ PORT_MODULES = [
     "lightdock_tpu_torch.simulation",
     "lightdock_tpu_torch.cli",
     "lightdock_tpu_torch.parallel",
+    "lightdock_tpu_torch.parallel.mesh",
     "lightdock_tpu_torch.parallel.multihost",
+    "lightdock_tpu_torch.parallel.sharded",
     "lightdock_tpu_torch.parallel.farm",
     "lightdock_tpu_torch.probes",
     "lightdock_tpu_torch.probes.__main__",
@@ -67,7 +69,7 @@ def _forbidden(name):
 def test_port_never_imports_jax():
     """After importing every port module, building the stand-in systems, a
     kernel energy path of each generation on them, a two-swarm farm that
-    takes a step, the P6 probe and a command-line run on the CPU from the
+    takes a step, a sharded kernel step on a one-process mesh, the P6 probe and a command-line run on the CPU from the
     files of ``standin.write_complex`` (PDB files, setup.json, positions,
     ANM), no ``jax``, no ``lightdock_tpu`` or ``lightdock_tpu.*``, no
     ``__graft_entry__`` and no ``scripts`` is in ``sys.modules``;
@@ -87,6 +89,12 @@ def test_port_never_imports_jax():
             "from lightdock_tpu_torch.parallel.farm import SwarmFarmRunner\n"
             "SwarmFarmRunner(steps, [pos, pos], [0, 1], 1, False, 0, 0, device='cpu',\n"
             "                energy_mode='kernel_v1', output_root=None).run_segmented(1)\n"
+            "from lightdock_tpu_torch.parallel import mesh, sharded\n"
+            "import torch\n"
+            "from lightdock_tpu_torch.parallel.multihost import stack_swarm_states\n"
+            "states = stack_swarm_states([pos], False, 0, 0, torch.float32, 'cpu')\n"
+            "sharded.run_multi_swarm_2d_kernel(mesh.make_mesh(device='cpu'), params, states,\n"
+            "                                  torch.rand(1, 1, 2))\n"
             "from lightdock_tpu_torch import probes\n"
             "probes.run(['P6'], probes.resolve_device('cpu'), calls=1, say=lambda s: None)\n"
             "import contextlib, io, os, tempfile\n"
