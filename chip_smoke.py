@@ -189,7 +189,23 @@ ranks of ``torch.distributed``:
     environment on the 32-file glob for 20 steps: one K1 launch a step a
     rank, each rank writing its 16 swarms, gso_20 against one process on
     the same files (5e-5; byte-identity printed), rank 0's ``--metrics``
-    counting all 32 swarms.
+    counting all 32 swarms;
+24. scores a float64 swarm at float32 (``GsoTorchRunner(dtype=float64,
+    energy_dtype=float32)``): 100 steps on the 1ppe DFIRE stand-in (K1)
+    and on the 1azp DNA + ANM stand-in (K3), 10 steps of ``kernel_v1``
+    with ``dq_bf16`` on 1ppe (K4 with bfloat16 step tables): one launch of
+    the path's kernel a step and none of another, the state float64,
+    step-1 scores bit-equal to the float32 runner's cast to float64, every
+    unmoved pose's score kept, a stored float64 score passed through the
+    gate as float64(float32(score)), K4's step tables bfloat16, poses/s
+    (min of 5, reset before each) in turns with the float32 runner; then
+    the float64 dense run of the 1ppe stand-in files for 10 steps on the
+    card and on the CPU (gso_1 and gso_10 text-identical, no kernel
+    launched); then ``lightdock_tpu_torch.precision_fidelity`` with
+    ``--standin`` and ``--hybrids`` for 100 steps: every row of the script
+    with its fields, the float64 seed control's step-1 scores equal, part
+    A's median relative errors within 1e-5, K1 and K3 each launched by the
+    float32 kernel leg and part A alone; a line a row.
 
 Ranks that share one card time the sharded paths' correctness, not their
 scaling.
@@ -266,6 +282,11 @@ EDGE_ULPS = 64
 SHARD_RANKS, SHARD_GRID, SHARD_DNA_STEPS = 2, (2, 2), 30
 SHARD_FARM_STEPS, SHARD_CHECK_STEPS = 20, (10, 50, 100)
 RANK_TIMEOUT = 300                 # seconds a collective waits for a peer
+# Phase 24: the depth of the K4 run with bfloat16 step tables and of the
+# float64 dense run on the card and on the CPU; the most part A's median
+# relative error of a float32 mode may read (the JAX package's CPU rows in
+# PRECISION_r05.json read 8.9e-8 on 1ppe, 3.4e-7 on 1azp).
+MIXED_V1_STEPS, MIXED_CPU_STEPS, PART_A_MEDIAN = 10, 10, 1e-5
 # operations an element (P1: an element-rep; P2-P3: a pair; P4-P6: an
 # output element and rep) of each probe variant, counting a compare, a
 # select, an add, a multiply, a sqrt and a cast one each (loads, index
@@ -2407,14 +2428,231 @@ def cli_ranks_phase(card, counters):
     return [x["launches"] for x in res]
 
 
+def mixed_path(label, system, energy_mode, steps, counters, kernel, card, dq_bf16=False):
+    """Phase 24 (a) on one path: ``steps`` steps of ``GsoTorchRunner(dtype=
+    float64, energy_dtype=float32)`` through ``run_segmented`` with every
+    kernel count set to 0 just before and read just after, and its checks.
+    Returns the path kernel's launches."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch.engine.runner import GsoTorchRunner
+
+    params, pos, k = system
+    f32, f64 = torch.float32, torch.float64
+
+    def runner(dtype, energy_dtype=None, out_dir=None):
+        return GsoTorchRunner(params, pos, SEED, use_anm=k > 0, anm_rec=k, anm_lig=k,
+                              output_directory=out_dir, dtype=dtype, device="cuda",
+                              energy_mode=energy_mode, dq_bf16=dq_bf16,
+                              energy_dtype=energy_dtype)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        mixed = runner(f64, f32, out_dir)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        final, outs = mixed.run_segmented(steps, SEGMENT)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        step1 = sidecar_scores(out_dir, 1)
+    only(launches, kernel.__name__, steps, f"phase 24: {label}")
+    floats = {name: x.dtype for name, x in final._asdict().items() if x.is_floating_point()}
+    check(all(d == f64 for d in floats.values()) and step1.dtype == np.float64,
+          f"phase 24: {label}: state dtypes {floats}, step-1 scores {step1.dtype}")
+    check(all(bool(torch.isfinite(x).all()) for x in final if x.is_floating_point()),
+          f"phase 24: {label}: non-finite state")
+    ref = runner(f32).run(1)[1].scoring[0].to(f64).cpu().numpy()
+    same = bool(np.array_equal(step1, ref))
+    # The segment's unmoved poses keep their stored score.
+    unmoved = outs.num_neighbors[:-1] == 0
+    kept = bool(torch.equal(outs.scoring[1:][unmoved], outs.scoring[:-1][unmoved]))
+    # A stored float64 score with bits below float32's passes the gate as
+    # float64(float32(score)), as in JAX.
+    t, q, a_rec, a_lig = final.t, final.q, final.a_rec, final.a_lig
+    gate = torch.arange(N_POSES, device="cuda") % 2 == 0
+    prev = final.scoring * (1.0 + 2.0 ** -40)
+    gated = mixed.energy_fn(mixed.params, t, q, a_rec, a_lig, moved=gate, prev_scoring=prev)
+    passed = bool(torch.equal(gated[~gate], prev[~gate].to(f32).to(f64)))
+    dq = mixed.params.dfire_dq.dtype if mixed.params.dfire_dq is not None else None
+    times = {"float32": [], "float64 state": []}
+    timers = {"float32": runner(f32), "float64 state": runner(f64, f32)}
+    for rep in range(5):
+        for name in (list(timers) if rep % 2 == 0 else list(timers)[::-1]):
+            timers[name].reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timers[name].run(steps)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    rate = {name: N_POSES * steps / min(x) for name, x in times.items()}
+    say(f"phase 24: {label}: {steps} steps in {run_s:.3f} s (first run, with snapshots); "
+        f"kernel launches {launches}; state {sorted(set(map(str, floats.values())))}; "
+        f"step-1 scores bit-equal to the float32 runner's {same}; "
+        f"{int(unmoved.sum())} unmoved pose-steps in the last segment kept their score "
+        f"{kept}; a float64 score through the gate is float64(float32(score)) {passed}"
+        + (f"; step tables {dq}" if dq is not None else ""))
+    say(f"phase 24: [{card}] {label}: {steps} GSO steps x {N_POSES} poses, min of 5 in "
+        f"turns: float64 state {rate['float64 state']:.1f} poses/s, float32 "
+        f"{rate['float32']:.1f} poses/s (float64 state: "
+        f"{', '.join(f'{x:.4f}' for x in times['float64 state'])} s; float32: "
+        f"{', '.join(f'{x:.4f}' for x in times['float32'])} s)")
+    check(same, f"phase 24: {label}: step-1 scores differ from the float32 runner's")
+    check(kept, f"phase 24: {label}: an unmoved pose's score changed")
+    check(passed, f"phase 24: {label}: the gate did not pass float64(float32(score))")
+    check(not dq_bf16 or dq == torch.bfloat16, f"phase 24: {label}: step tables {dq}")
+    return launches[kernel.__name__]
+
+
+def f64_card_vs_cpu(work, counters):
+    """Phase 24 (b): the float64 dense run of the 1ppe stand-in files,
+    ``MIXED_CPU_STEPS`` steps on the card and on the CPU; gso_1 and gso_10
+    must be text-identical and no kernel may launch."""
+    import torch
+
+    from lightdock_tpu_torch import precision_fidelity as pf
+
+    sim, _, _ = pf.load_example("1ppe", work / "inputs")
+    seconds = {}
+    for c in counters:
+        c.launches = 0
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pf.run_engine(sim, work / f"f64_{device}", "f64", "dense", torch.device(device),
+                      steps=MIXED_CPU_STEPS)
+        torch.cuda.synchronize()
+        seconds[device] = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    same = {s: (work / "f64_cuda" / f"gso_{s}.out").read_text()
+            == (work / "f64_cpu" / f"gso_{s}.out").read_text() for s in (1, MIXED_CPU_STEPS)}
+    say(f"phase 24: 1ppe stand-in files, float64 dense, {MIXED_CPU_STEPS} steps: card "
+        f"{seconds['cuda']:.3f} s, CPU {seconds['cpu']:.3f} s; text-identical "
+        f"{same}; kernel launches {launches}")
+    check(all(same.values()), f"phase 24: the card's float64 dense run differs from the "
+          f"CPU's: {same}")
+    check(sum(launches.values()) == 0, f"phase 24: the dense runs launched {launches}")
+
+
+# The fields of scripts/precision_fidelity.py's rows, with the port's mode
+# names; a row of the card also names it.
+PRECISION_COMPARED = {"horizon", "first_rendered_divergence_step", f"step{STEPS}"}
+PRECISION_ROWS = {
+    "kernel": {"example", "method", "backend", "engine_f32", "energy_accuracy", "card"},
+    "control_f64_seedB": {"example", "note"},
+    "hybrid": {"example", "state_dtype", "energy_dtype", "engine", "backend", "card"},
+}
+PRECISION_RESULT = {"best_score_f64", "best_score_f32", "best_score_rel_diff",
+                    "best_pose_same", "top10_overlap", "kendall_tau", "n_clusters_f64",
+                    "n_clusters_f32", "cluster_rep_overlap"}
+
+
+def precision_tool(work, counters, card):
+    """Phase 24 (c): ``precision_fidelity.main`` with ``--standin`` and
+    ``--hybrids`` at ``STEPS`` steps on the card; checks and prints every
+    row.  Returns (K1's, K3's) launches."""
+    from lightdock_tpu_torch import precision_fidelity as pf
+
+    out = work / "PRECISION_torch.json"
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = pf.main(["--standin", str(work / "inputs"), "--hybrids", "--steps", str(STEPS),
+                      "--out", str(out)])
+    except Exception as exc:  # a leg's failure fails the phase
+        fail(f"phase 24: precision_fidelity: {type(exc).__name__}: {exc}")
+    run_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    rows = json.loads(out.read_text())
+    check(rc == 0, f"phase 24: precision_fidelity exit {rc}")
+    say(f"phase 24: `python -m lightdock_tpu_torch.precision_fidelity --standin DIR "
+        f"--hybrids --steps {STEPS}` in {run_s:.1f} s; kernel launches {launches}")
+    names = {"kernel": [f"{x}_cuda_kernel" for x in pf.EXAMPLES],
+             "control_f64_seedB": [f"{x}_control_f64_seedB" for x in pf.EXAMPLES],
+             "hybrid": [f"{x}_hybrid_{h}" for x in pf.EXAMPLES
+                        for h in ("f32_state_f64_energy", "f64_state_f32_energy")]}
+    want = {key: fields | PRECISION_COMPARED for kind, keys in names.items()
+            for key in keys for fields in [PRECISION_ROWS[kind]]}
+    check(set(rows) == set(want), f"phase 24: rows {sorted(rows)}, expected {sorted(want)}")
+    for key, fields in want.items():
+        row = rows[key]
+        check(set(row) == fields and set(row[f"step{STEPS}"]) == PRECISION_RESULT,
+              f"phase 24: row {key} has fields {sorted(row)}")
+        by_step = {h["step"]: h for h in row["horizon"]}
+        end = row[f"step{STEPS}"]
+        line = (f"phase 24: [{card}] {key}: first rendered divergence step "
+                f"{row['first_rendered_divergence_step']}; max_dscore/max_dt step 1 "
+                f"{by_step[1]['max_dscore']:.3e}/{by_step[1]['max_dt']:.3e}, step 10 "
+                f"{by_step[10]['max_dscore']:.3e}/{by_step[10]['max_dt']:.3e}, step {STEPS} "
+                f"{by_step[STEPS]['max_dscore']:.3e}/{by_step[STEPS]['max_dt']:.3e}; "
+                f"step {STEPS}: Kendall tau {end['kendall_tau']:.4f}, top-10 overlap "
+                f"{end['top10_overlap']}, cluster representatives {end['cluster_rep_overlap']} "
+                f"of {end['n_clusters_f64']}/{end['n_clusters_f32']}, best score rel diff "
+                f"{end['best_score_rel_diff']:.3e}")
+        if "energy_accuracy" in row:
+            acc = row["energy_accuracy"]
+            line += "; part A " + ", ".join(
+                f"{m} max {acc[m]['max']:.3e} median {acc[m]['median']:.3e}"
+                for m in ("dense_f32_rel_err", "kernel_f32_rel_err"))
+            for m in ("dense_f32_rel_err", "kernel_f32_rel_err"):
+                check(acc[m]["median"] <= PART_A_MEDIAN,
+                      f"phase 24: {key}: part A {m} median {acc[m]['median']:.3e}")
+        say(line)
+        if key.endswith("control_f64_seedB"):
+            check(by_step[1]["max_dscore"] == 0.0,
+                  f"phase 24: {key}: step-1 max_dscore {by_step[1]['max_dscore']}")
+    # Each example's float32 kernel leg (STEPS launches) and part A (one).
+    check(launches["dfire_pairs"] == STEPS + 1 and launches["elec_vdw_pairs"] == STEPS + 1
+          and sum(launches.values()) == 2 * (STEPS + 1),
+          f"phase 24: precision_fidelity launched {launches}")
+    return launches["dfire_pairs"], launches["elec_vdw_pairs"]
+
+
+def mixed_phase(card, counters):
+    """Phase 24: a float64 state scored at float32 by K1, K3 and K4, the
+    float64 dense leg on the card against the CPU, and the precision tool.
+    Returns each kernel's launches by site."""
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.ops import dfire_pairs as dp
+    from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4
+    from lightdock_tpu_torch.ops import elec_vdw_pairs as ev
+
+    t_phase = time.perf_counter()
+    sites = {
+        "dfire_pairs": {"phase 24 float64 state": mixed_path(
+            "1ppe DFIRE, float64 state, float32 K1",
+            standin.toy_system(*DFIRE_ATOMS, N_POSES), "kernel", STEPS, counters,
+            dp.dfire_pairs, card)},
+        "elec_vdw_pairs": {"phase 24 float64 state": mixed_path(
+            "1azp DNA + ANM, float64 state, float32 K3",
+            standin.toy_system(*DNA_ATOMS, N_POSES, num_anm=DNA_ANM, method="dna"),
+            "kernel", STEPS, counters, ev.elec_vdw_pairs, card)},
+        "dfire_pairs_v1": {"phase 24 float64 state": mixed_path(
+            "1ppe DFIRE v1, float64 state, float32 K4, bfloat16 step tables",
+            standin.toy_system(*DFIRE_ATOMS, N_POSES, dfire_mode="steps"), "kernel_v1",
+            MIXED_V1_STEPS, counters, k4.dfire_pairs_v1, card, dq_bf16=True)},
+    }
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        f64_card_vs_cpu(work, counters)
+        k1, k3 = precision_tool(work, counters, card)
+    sites["dfire_pairs"]["phase 24 precision tool"] = k1
+    sites["elec_vdw_pairs"]["phase 24 precision tool"] = k3
+    say(f"phase 24: done in {time.perf_counter() - t_phase:.1f} s")
+    return sites
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
-           rank_launches=None):
+           rank_launches=None, mixed_launches=None):
     """A kernel's entry of the kernels line; ``rank_launches`` maps each
-    sharded phase to the kernel's launches on each of its ranks."""
+    sharded phase to the kernel's launches on each of its ranks,
+    ``mixed_launches`` each of phase 24's sites (a float64 state scored at
+    float32) to the kernel's launches there."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
-            "rank_launches": rank_launches or {}}
+            "rank_launches": rank_launches or {}, "mixed_launches": mixed_launches or {}}
 
 
 def main() -> int:
@@ -2582,6 +2820,9 @@ def main() -> int:
                 "phase 23": cli_ranks_phase(card, counters)}
     k3_sites = {"phase 21": by_rank["elec_vdw_pairs"][0]}
 
+    # -- 24. a float64 state scored at float32; the precision tool ----------------
+    mixed_sites = mixed_phase(card, counters)
+
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
         "the port imported jax or the JAX package")
@@ -2612,14 +2853,15 @@ def main() -> int:
     say(json.dumps({"kernels": [
         record("dfire_pairs", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
                f"{pallas}:1088", k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound,
-               rank_launches=k1_sites),
+               rank_launches=k1_sites, mixed_launches=mixed_sites["dfire_pairs"]),
         record("elec_vdw_pairs", "lightdock_tpu_torch/csrc/elec_vdw_pairs.cu",
                f"{pallas}:1325", k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound,
-               rank_launches=k3_sites),
+               rank_launches=k3_sites, mixed_launches=mixed_sites["elec_vdw_pairs"]),
         record("dfire_pairs_worklist", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
                f"{pallas}:1115", k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
         record("dfire_pairs_v1", "lightdock_tpu_torch/csrc/dfire_pairs_v1.cu",
-               f"{pallas}:213", k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound),
+               f"{pallas}:213", k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound,
+               mixed_launches=mixed_sites["dfire_pairs_v1"]),
         record("elec_vdw_pairs_v1", "lightdock_tpu_torch/csrc/elec_vdw_pairs_v1.cu",
                f"{pallas}:364", k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound),
         *probe_records,

@@ -12,7 +12,10 @@ of ``engine.energy_kernel``), 'kernel_v1' ('pallas_v1': K4 and K5),
 is 'kernel': the JAX crossover map was measured on a TPU, and the port's
 own rule waits for H100 data.  A kernel runs on the card (the default
 device); where the caller asks for the CPU, its plain version runs
-instead.
+instead.  ``energy_dtype`` scores at another dtype than the swarm state
+(:func:`mixed_precision_energy`, port of ``gso_jax.py``'s): a float64
+swarm scored by the float32 kernels, or a float32 swarm by the float64
+dense energy.
 """
 
 from __future__ import annotations
@@ -85,6 +88,35 @@ def make_energy(params: BatchScoringParams, energy_mode: str, device,
     return tparams, energy_fn
 
 
+def mixed_precision_energy(energy_fn, state_dtype: torch.dtype,
+                           energy_dtype: Optional[torch.dtype]):
+    """``energy_fn`` scoring at ``energy_dtype`` while the swarm state stays
+    at ``state_dtype``: the poses and ``prev_scoring`` are cast to
+    ``energy_dtype``, ``moved`` passes through, and the scores are cast
+    back.  ``energy_fn`` itself where the dtypes agree or ``energy_dtype``
+    is None.  The wrapped function takes ``params`` at ``energy_dtype``.
+
+    Port of ``lightdock_tpu/engine/gso_jax.py`` ``mixed_precision_energy``.
+    An unmoved pose's stored score passes through ``energy_dtype``, as in
+    JAX: a float64 score keeps only its float32 bits under a float32
+    energy."""
+    if energy_dtype is None or energy_dtype == state_dtype:
+        return energy_fn
+
+    def wrapped(p, t, q, a_rec, a_lig, moved=None, prev_scoring=None):
+        kw = {}
+        if moved is not None:
+            kw["moved"] = moved
+        if prev_scoring is not None:
+            kw["prev_scoring"] = prev_scoring.to(energy_dtype)
+        scores = energy_fn(p, t.to(energy_dtype), q.to(energy_dtype),
+                           a_rec.to(energy_dtype), a_lig.to(energy_dtype), **kw)
+        return scores.to(state_dtype)
+
+    wrapped.kernel = getattr(energy_fn, "kernel", None)
+    return wrapped
+
+
 def native_stream(seed: int, device, n: int) -> torch.Tensor:
     """(n,) float32 uniform draws in [0, 1) from ``torch.Generator`` on
     ``device`` seeded with ``seed``.  Its contract is determinism (the same
@@ -103,7 +135,15 @@ class GsoTorchRunner:
     ``rng_mode`` 'reference' draws the bit-exact rand-0.7 stream on the
     host; 'native' draws :func:`native_stream` on the device.  Either is
     made from its start and sliced at the resumed step, so a resumed run
-    takes the draws of the uninterrupted one."""
+    takes the draws of the uninterrupted one.
+
+    ``energy_dtype`` (None: ``dtype``) is the dtype the energy is built
+    and scored at; the state, the moves, the snapshots and
+    ``load_snapshot`` stay at ``dtype``, and ``self.params`` is at
+    ``energy_dtype`` (the move reads only ``params.use_anm``).  The kernel
+    modes take float32 only: on the card a float64 state needs
+    ``energy_dtype=torch.float32`` there, and a float64 energy raises at
+    the kernel's first call."""
 
     def __init__(self, params: BatchScoringParams, positions, seed: int,
                  use_anm: bool, anm_rec: int, anm_lig: int,
@@ -111,12 +151,15 @@ class GsoTorchRunner:
                  dtype: torch.dtype = torch.float32, device="cuda",
                  energy_mode: str = "kernel", energy_chunk: int = 0,
                  dq_bf16: bool = False, cull: bool = True,
-                 rng_mode: str = "reference"):
+                 rng_mode: str = "reference",
+                 energy_dtype: Optional[torch.dtype] = None):
         device = cuda_device(device, "GsoTorchRunner")
         if rng_mode not in RNG_MODES:
             raise ValueError(f"rng_mode must be one of {RNG_MODES}, got {rng_mode!r}")
-        self.params, self.energy_fn = make_energy(
-            params, energy_mode, device, dtype, energy_chunk, dq_bf16, cull)
+        self.params, energy_fn = make_energy(
+            params, energy_mode, device, energy_dtype or dtype, energy_chunk,
+            dq_bf16, cull)
+        self.energy_fn = mixed_precision_energy(energy_fn, dtype, energy_dtype)
         self.device = device
         self.state = init_state(positions, use_anm, anm_rec, anm_lig,
                                 dtype=dtype, device=device)

@@ -1,7 +1,8 @@
 """The port's copies of the host layer equal their originals on the same
 inputs: constants, tables, potentials, the docking-model record, the
 parameter builder and ``from_reference``, the random stream, the snapshot
-text and sidecars, the split of pose rows, and the stand-in systems."""
+text and sidecars, the split of pose rows, the BSAS clustering, and the
+stand-in systems."""
 
 import dataclasses
 
@@ -11,6 +12,7 @@ import pytest
 pytest.importorskip("torch")
 
 import __graft_entry__  # noqa: E402
+from lightdock_tpu import analysis as janalysis  # noqa: E402
 from lightdock_tpu import constants as jc  # noqa: E402
 from lightdock_tpu.engine import energy_batch as eb  # noqa: E402
 from lightdock_tpu.scoring import models as jmodels  # noqa: E402
@@ -26,6 +28,7 @@ from lightdock_tpu_torch.engine.energy_kernel import kernel_params  # noqa: E402
 from lightdock_tpu_torch.scoring import models as tmodels  # noqa: E402
 from lightdock_tpu_torch.scoring import potentials as tpot  # noqa: E402
 from lightdock_tpu_torch.scoring import tables as ttables  # noqa: E402
+from lightdock_tpu_torch.utils import clusters as tclusters  # noqa: E402
 from lightdock_tpu_torch.utils import output as tout  # noqa: E402
 from lightdock_tpu_torch.utils import positions as tpos  # noqa: E402
 from lightdock_tpu_torch.utils import rng as trng  # noqa: E402
@@ -188,6 +191,26 @@ def test_gso_output_matches(tmp_path):
         for k in ref[1]:
             np.testing.assert_array_equal(ours[1][k], ref[1][k])
     assert tout.read_state_sidecar(tmp_path / "none.out") is None
+
+
+@pytest.mark.parametrize("cutoff", [None, 1.5])
+def test_clusters_match(cutoff):
+    """``utils.clusters`` equals ``lightdock_tpu.analysis``: the RMSD matrix
+    bit for bit and the same BSAS clusters, on poses in a few tight groups
+    (so clusters gather several members) with tied scores."""
+    rng = np.random.RandomState(3)
+    centres = rng.uniform(-6, 6, size=(5, 1, 3))
+    coords = (centres[rng.randint(0, 5, 40)]
+              + rng.standard_normal((40, 17, 3)) * 0.8)
+    scores = np.round(rng.standard_normal(40), 1)
+    np.testing.assert_array_equal(tclusters.pose_rmsd_matrix(coords),
+                                  janalysis.pose_rmsd_matrix(coords))
+    kw = {} if cutoff is None else {"cutoff": cutoff}
+    ours = tclusters.cluster_bsas(coords, scores, **kw)
+    ref = janalysis.cluster_bsas(coords, scores, **kw)
+    assert tclusters.DEFAULT_RMSD_CUTOFF == janalysis.DEFAULT_RMSD_CUTOFF
+    assert [dataclasses.astuple(c) for c in ours] == [dataclasses.astuple(c) for c in ref]
+    assert any(len(c.members) > 1 for c in ours) and len(ours) > 1
 
 
 @pytest.mark.parametrize("use_anm,anm_rec,anm_lig", [(False, 0, 0), (True, 2, 3),

@@ -27,6 +27,7 @@ PORT_MODULES = [
     "lightdock_tpu_torch.utils.pdb",
     "lightdock_tpu_torch.utils.setupfile",
     "lightdock_tpu_torch.utils.metrics",
+    "lightdock_tpu_torch.utils.clusters",
     "lightdock_tpu_torch.ops.quaternion",
     "lightdock_tpu_torch.ops.tiling",
     "lightdock_tpu_torch.ops.cull",
@@ -44,6 +45,7 @@ PORT_MODULES = [
     "lightdock_tpu_torch.standin",
     "lightdock_tpu_torch.simulation",
     "lightdock_tpu_torch.cli",
+    "lightdock_tpu_torch.precision_fidelity",
     "lightdock_tpu_torch.parallel",
     "lightdock_tpu_torch.parallel.mesh",
     "lightdock_tpu_torch.parallel.multihost",
@@ -69,11 +71,13 @@ def _forbidden(name):
 def test_port_never_imports_jax():
     """After importing every port module, building the stand-in systems, a
     kernel energy path of each generation on them, a two-swarm farm that
-    takes a step, a sharded kernel step on a one-process mesh, the P6 probe and a command-line run on the CPU from the
-    files of ``standin.write_complex`` (PDB files, setup.json, positions,
-    ANM), no ``jax``, no ``lightdock_tpu`` or ``lightdock_tpu.*``, no
-    ``__graft_entry__`` and no ``scripts`` is in ``sys.modules``;
-    ``chip_smoke.py`` imports none of them."""
+    takes a step, a sharded kernel step on a one-process mesh, the P6
+    probe, a command-line run on the CPU from the files of
+    ``standin.write_complex`` (PDB files, setup.json, positions, ANM) and
+    the precision tool with its hybrids on such files, no ``jax``, no
+    ``lightdock_tpu`` or ``lightdock_tpu.*``, no ``__graft_entry__`` and
+    no ``scripts`` is in ``sys.modules``; ``chip_smoke.py`` imports none
+    of them."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -106,6 +110,11 @@ def test_port_never_imports_jax():
             "        assert cli.main([str(setup), str(pos[0]), '2', 'dna', '--platform', 'cpu',\n"
             "                         '--anm-dir', work, '--output-dir', out]) == 0\n"
             "    assert os.path.exists(os.path.join(out, 'gso_1.out'))\n"
+            "    from lightdock_tpu_torch import precision_fidelity as pf\n"
+            "    pf.STANDINS = {'1ppe': (12, 8, 3, 0), '1azp': (12, 8, 3, 1)}\n"
+            "    with contextlib.redirect_stderr(io.StringIO()):\n"
+            "        pf.main(['--device', 'cpu', '--standin', work, '--steps', '10',\n"
+            "                 '--hybrids', '--out', os.path.join(work, 'p.json')])\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
