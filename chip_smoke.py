@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``lightdock_tpu_torch/csrc`` with nvcc (one
+Builds the CUDA kernels from ``lightdock_tpu_torch/csrc`` with nvcc and the
+host IO library (``csrc/io_native.cpp``) with the host C++ compiler (one
 process per source, all at once), then drives five paths and a farm, each
 on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed,
-the command line on the files of such complexes, and the sharded paths on
-ranks of ``torch.distributed``:
+the command line on the files of such complexes, the sharded paths on
+ranks of ``torch.distributed``, and the workflow from raw PDB files to
+ranked complexes:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
-   versions, the kernel build times with ptxas' registers and spills, and
+   versions, the kernel build times with ptxas' registers and spills (and
+   the IO library's build time), and
    the registers and resident warps an SM of K1 and K2, and of K3, K4
    and K5 with their local (stack and spill) bytes a thread, rigid and
    per pose (K4 also with bfloat16 step tables);
@@ -206,6 +209,24 @@ ranks of ``torch.distributed``:
     with its fields, the float64 seed control's step-1 scores equal, part
     A's median relative errors within 1e-5, K1 and K3 each launched by the
     float32 kernel leg and part A alone; a line a row.
+25. runs the workflow around a run, from raw PDB files: times the native
+    gso_N.out writer against its plain version (``format_gso_output`` and
+    the write) in turns at 200 x 7 and 200 x 27 pose columns, and the
+    ``.npz`` sidecar apart; copies the 1ppe-shaped stand-in's PDB files to
+    rec.pdb and lig.pdb and runs ``lightdock-tpu-torch-tools setup`` for 32
+    swarms x 200 (timed), the 32-file glob through ``lightdock-tpu-torch``
+    for 100 steps with ``--metrics`` (100 K1 launches and no other
+    kernel's; its poses/s beside phase 20's resumed glob), then 4 more in
+    turns with the plain and the native writer; ``lightdock-tpu-torch-
+    analysis rank`` with metrics over all 6,400 poses, ``cluster`` and
+    ``all`` on the card (timed, no kernel launched), the clash count's
+    device ms beside its bound (float64 operations over 34 TFLOP/s), the
+    pose transform and an RMSD matrix; on copies of 4 swarms, ``rank`` then
+    ``all`` on the card and with ``--platform cpu`` (timed; every file
+    byte-identical); then a DNA + ANM setup (1094 x 506 atoms, 10 + 10
+    modes, 4 x 200) run 10 steps (10 K3 launches, 27 pose columns) and
+    analysed on the card and the CPU alike; every snapshot the phase writes
+    equals ``format_gso_output`` of its sidecar's state.
 
 Ranks that share one card time the sharded paths' correctness, not their
 scaling.
@@ -221,7 +242,8 @@ Fails with a non-zero exit and no result line when there is no CUDA
 device, when it is not run from a checkout, or when any check fails (a
 rank's failure included).  The last line of its output is the JSON device
 record; the line before it lists the kernels, with each kernel's launches
-a rank in the sharded phases (``rank_launches``).
+a rank in the sharded phases (``rank_launches``), at phase 24's sites
+(``mixed_launches``) and in phase 25's runs (``workflow_launches``).
 """
 
 from __future__ import annotations
@@ -287,6 +309,19 @@ RANK_TIMEOUT = 300                 # seconds a collective waits for a peer
 # relative error of a float32 mode may read (the JAX package's CPU rows in
 # PRECISION_r05.json read 8.9e-8 on 1ppe, 3.4e-7 on 1azp).
 MIXED_V1_STEPS, MIXED_CPU_STEPS, PART_A_MEDIAN = 10, 10, 1e-5
+# Phase 25: the workflow around a run.  `tools setup` of WORKFLOW_SWARMS x
+# N_POSES on the 1ppe-shaped stand-in's PDB files, the glob STEPS steps
+# (and WORKFLOW_AB_RUNS more in turns, the plain writer against the native
+# one), the analysis on the card; the card's files against the CPU's on
+# copies of the first WORKFLOW_SUBSET swarms; a DNA + ANM setup of
+# WORKFLOW_SUBSET swarms run CLI_SHORT_STEPS steps.  Each writer form
+# timed WRITER_REPS times a turn, the clash count CLASH_REPS calls.
+WORKFLOW_SWARMS, WORKFLOW_SUBSET, WORKFLOW_AB_RUNS = 32, 4, 4
+WRITER_REPS, CLASH_REPS = 20, 5
+# float64 operations a second outside the tensor cores (NVIDIA's H100 SXM
+# data sheet), and the clash count's float64 operations a receptor-ligand
+# pair (3 differences, 3 squares, 2 adds, 1 compare): its bound.
+PEAK_F64, FLOPS_CLASH = 34e12, 9
 # operations an element (P1: an element-rep; P2-P3: a pair; P4-P6: an
 # output element and rep) of each probe variant, counting a compare, a
 # select, an add, a multiply, a sqrt and a cast one each (loads, index
@@ -1904,7 +1939,8 @@ def cli_path_phase(card, counters):
 def cli_rest_phase(card, counters):
     """Phase 20: the command line's DNA + ANM path, the multi-swarm glob and
     --resume auto, kernel_v1, the text resume, --profile and
-    ``python -m lightdock_tpu_torch.cli``."""
+    ``python -m lightdock_tpu_torch.cli``.  Returns the resumed glob's
+    poses/s (its ``Throughput`` line)."""
     import numpy as np
 
     from lightdock_tpu_torch import standin
@@ -1974,6 +2010,7 @@ def cli_rest_phase(card, counters):
         check(dirs == sorted(f"swarm_{i}" for i in range(FARM_SWARMS)),
               f"{label}: swarm directories {dirs[:4]}...")
         check(close, f"{label}: the resumed scores differ from the uninterrupted run's")
+        glob_poses_s = float(out.strip().splitlines()[-1].split()[1])
 
         # kernel_v1 (K4), then the resume from its gso_10.out (K1): with
         # the sidecar, and from the text with the sidecar deleted; then
@@ -2041,6 +2078,7 @@ def cli_rest_phase(card, counters):
             "ends: " + " | ".join(proc.stdout.strip().splitlines()[-2:]))
         check(proc.returncode == 0 and (sub / "swarm_0" / f"gso_{CLI_SHORT_STEPS}.out").exists(),
               f"python -m lightdock_tpu_torch.cli exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return glob_poses_s
 
 
 # -- phases 21-23: ranks of torch.distributed on the card --------------------
@@ -2643,16 +2681,356 @@ def mixed_phase(card, counters):
     return sites
 
 
+# -- phase 25: the workflow around a run on the card --------------------------
+
+def writer_timings(card, work):
+    """Phase 25: ms a snapshot of the native writer and of its plain version
+    (``format_gso_output`` and the write), in turns (native, plain, plain,
+    native), at N_POSES x 7 and N_POSES x (7 + 2 DNA_ANM) pose columns from
+    a float32 state, with the two texts equal; the ``.npz`` sidecar timed
+    apart.  Returns {columns: (native, plain, sidecar) medians in ms}."""
+    import numpy as np
+
+    from lightdock_tpu_torch.utils import output
+
+    rng = np.random.RandomState(SEED)
+    result = {}
+    for n_anm in (0, DNA_ANM):
+        g = N_POSES
+        state = {"t": rng.uniform(-40, 40, (g, 3)), "q": rng.standard_normal((g, 4)),
+                 "a_rec": rng.standard_normal((g, n_anm)),
+                 "a_lig": rng.standard_normal((g, n_anm)), "luciferin": rng.uniform(0, 9, g),
+                 "num_neighbors": rng.randint(0, 6, g), "vision": rng.uniform(0, 5, g),
+                 "scoring": rng.standard_normal(g) * 50}
+        state = {k: v.astype(np.int32 if k == "num_neighbors" else np.float32)
+                 for k, v in state.items()}
+        cols = (np.concatenate([state[k] for k in ("t", "q", "a_rec", "a_lig")],
+                               axis=1).astype(np.float64),
+                *(state[k].astype(np.float64) if k != "num_neighbors" else state[k]
+                  for k in ("luciferin", "num_neighbors", "vision", "scoring")))
+        native_path, plain_path = work / f"native_{n_anm}.out", work / f"plain_{n_anm}.out"
+        forms = {
+            "native": lambda: output.write_gso_output(native_path, *cols),
+            "plain": lambda: plain_path.write_text(output.format_gso_output(*cols)),
+            "sidecar": lambda: output.write_state_sidecar(native_path, 1, **state)}
+        times = {k: [] for k in forms}
+        for name in forms:
+            forms[name]()                                     # warm-up
+        for _ in range(WRITER_REPS):
+            for name in ("native", "plain", "plain", "native", "sidecar"):
+                t0 = time.perf_counter()
+                forms[name]()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        check(native_path.read_text() == plain_path.read_text(),
+              f"phase 25: the native writer's text differs from format_gso_output's "
+              f"at {cols[0].shape}")
+        medians = tuple(float(np.median(times[k])) for k in ("native", "plain", "sidecar"))
+        result[cols[0].shape[1]] = medians
+        say(f"phase 25: [{card}] writer at {g} x {cols[0].shape[1]}: native "
+            f"{medians[0]:.4f} ms, format_gso_output + write {medians[1]:.4f} ms "
+            f"({medians[1] / medians[0]:.2f}x), .npz sidecar {medians[2]:.4f} ms a snapshot "
+            f"(medians of {2 * WRITER_REPS}, {2 * WRITER_REPS} and {WRITER_REPS}; mins "
+            f"{min(times['native']):.4f}, {min(times['plain']):.4f}, "
+            f"{min(times['sidecar']):.4f})")
+    return result
+
+
+def held_snapshots(root) -> int:
+    """Every gso_N.out under ``root`` against ``format_gso_output`` of the
+    state its sidecar holds (the arrays the writer was given); returns the
+    count held."""
+    import numpy as np
+
+    from lightdock_tpu_torch.utils import output
+
+    count = 0
+    for path in sorted(pathlib.Path(root).rglob("gso_*.out")):
+        _, data = output.read_state_sidecar(path)
+        poses = np.concatenate([data[k] for k in ("t", "q", "a_rec", "a_lig")
+                                if data[k].shape[-1] > 0], axis=1).astype(np.float64)
+        text = output.format_gso_output(poses, data["luciferin"].astype(np.float64),
+                                        data["num_neighbors"],
+                                        data["vision"].astype(np.float64),
+                                        data["scoring"].astype(np.float64))
+        check(path.read_text() == text,
+              f"phase 25: {path} differs from format_gso_output of its sidecar")
+        count += 1
+    return count
+
+
+def analysis_run(counters, argv):
+    """``lightdock_tpu_torch.cli_analysis.main(argv)``, ended by the card's
+    synchronize; no pair kernel launched.  Returns (seconds, output)."""
+    import torch
+
+    from lightdock_tpu_torch import cli_analysis
+
+    for c in counters:
+        c.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_analysis.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"lightdock-tpu-torch-analysis {' '.join(map(str, argv))}: exit {rc}")
+    check(sum(c.launches for c in counters) == 0,
+          f"lightdock-tpu-torch-analysis {argv[0]} launched a pair kernel")
+    return seconds, out.getvalue().strip()
+
+
+def tree_bytes(root):
+    return {q.relative_to(root).as_posix(): q.read_bytes()
+            for q in sorted(pathlib.Path(root).rglob("*")) if q.is_file()}
+
+
+def workflow_setup(counters, work, name, method, atoms, swarms, num_anm=0):
+    """Raw PDB files of a stand-in complex (``standin.write_complex``'s
+    working copies as rec.pdb and lig.pdb), then ``lightdock-tpu-torch-tools
+    setup`` for ``swarms`` x N_POSES (with ``num_anm`` + ``num_anm`` modes
+    and the stand-in's mode files beside setup.json).  Returns (run
+    directory, setup.json, positions glob, seconds of the setup)."""
+    from lightdock_tpu_torch import cli_tools, standin
+
+    src, run = work / f"{name}_src", work / name
+    standin.write_complex(src, method, *atoms, N_POSES, num_anm=num_anm, seed=SEED)
+    raw = work / f"{name}_raw"
+    raw.mkdir()
+    for side in ("rec", "lig"):
+        shutil.copy(src / f"lightdock_{side}.pdb", raw / f"{side}.pdb")
+    argv = ["setup", raw / "rec.pdb", raw / "lig.pdb", "-s", swarms, "-g", N_POSES,
+            "--workdir", run]
+    if num_anm:
+        argv += ["--anm", "--anm-rec", num_anm, "--anm-lig", num_anm]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_tools.main([str(a) for a in argv])
+    setup_s = time.perf_counter() - t0
+    check(rc == 0, f"lightdock-tpu-torch-tools setup ({name}): exit {rc}")
+    for f in src.glob("*_nm.npy"):
+        shutil.copy(f, run / f.name)
+    init = sorted((run / "init").glob("initial_positions_*.dat"))
+    check(len(init) == swarms and all(len(f.read_text().splitlines()) == N_POSES
+                                      for f in init),
+          f"phase 25: tools setup wrote {len(init)} positions files")
+    return run, run / "setup.json", run / "init" / "initial_positions_*.dat", setup_s
+
+
+def card_against_cpu(counters, run, setup, step, label, extra=()):
+    """Copies of the first WORKFLOW_SUBSET swarm directories of ``run`` (made
+    before any analysis there); on each, ``rank`` with metrics over every
+    pose (its list kept as rank_all_poses.list), then ``all``, on the card
+    and with ``--platform cpu``.  Checks the files equal byte for byte and
+    returns {platform: (rank s, all s)}."""
+    seconds, trees = {}, {}
+    for platform in ("cuda", "cpu"):
+        root = run.parent / f"{run.name}_subset_{platform}"
+        for s in range(WORKFLOW_SUBSET):
+            shutil.copytree(run / f"swarm_{s}", root / f"swarm_{s}")
+        common = [step, "--setup", setup, "--platform", platform, *extra]
+        rank_s, _ = analysis_run(counters, ["rank", root, *common])
+        (root / "rank_by_scoring.list").rename(root / "rank_all_poses.list")
+        all_s, _ = analysis_run(counters, ["all", root, *common])
+        seconds[platform] = (rank_s, all_s)
+        trees[platform] = tree_bytes(root)
+    names = sorted(trees["cuda"])
+    differ = [n for n in names if trees["cuda"][n] != trees["cpu"].get(n)]
+    check(not differ and names == sorted(trees["cpu"]) and "top/top_1.pdb" in names,
+          f"phase 25: {label}: the card's analysis files differ from the CPU's: {differ[:5]}")
+    return seconds
+
+
+def glob_writer_turns(counters, run, setup, glob):
+    """The glob for STEPS steps through the command line, WORKFLOW_AB_RUNS
+    times in turns (plain, native, native, plain): the snapshots written by
+    the plain writer (``format_gso_output`` and the write, in place of
+    ``parallel.multihost.write_gso_output``) or by the native one.  One K1
+    launch a step each.  Returns {writer: [--metrics poses/s]}."""
+    import numpy as np
+
+    from lightdock_tpu_torch.parallel import multihost
+    from lightdock_tpu_torch.utils import output
+
+    native = multihost.write_gso_output
+
+    def plain(path, poses, luciferin, num_neighbors, vision, scoring):
+        pathlib.Path(path).write_text(output.format_gso_output(
+            np.asarray(poses, dtype=np.float64), luciferin, num_neighbors, vision, scoring))
+
+    result = {"plain": [], "native": []}
+    for i in range(WORKFLOW_AB_RUNS):
+        writer = "plain" if i % 4 in (0, 3) else "native"
+        work = run.parent / f"{run.name}_turn_{i}"
+        work.mkdir()
+        metrics = work / "metrics.jsonl"
+        multihost.write_gso_output = plain if writer == "plain" else native
+        try:
+            launches, _, _ = cli_run(counters, work, [setup, glob, STEPS, "dfire",
+                                                      "--metrics", metrics])
+        finally:
+            multihost.write_gso_output = native
+        only(launches, "dfire_pairs", STEPS, f"phase 25: the glob, turn {i} ({writer})")
+        result[writer].append(json.loads(metrics.read_text().splitlines()[-1])["poses_per_s"])
+    return result
+
+
+def clash_timing(card, run, step):
+    """The clash count on the card over every pose of the glob's gso_{step}
+    (CUDA events, CLASH_REPS calls after a warm-up) beside its bound, and
+    the pose transform and one swarm's RMSD matrix.  Returns (clash ms,
+    bound ms, bound_by, pairs)."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch import analysis
+    from lightdock_tpu_torch.utils.output import read_gso_output
+    from lightdock_tpu_torch.utils.pdb import parse_pdb
+
+    rec = parse_pdb(run / "lightdock_rec.pdb")
+    lig = parse_pdb(run / "lightdock_lig.pdb")
+    poses = np.concatenate([read_gso_output(run / f"swarm_{s}" / f"gso_{step}.out")[0]
+                            for s in range(WORKFLOW_SWARMS)])
+    none = np.zeros((0, lig.num_atoms, 3))
+    coords = analysis.transform_ligand_batch(lig.coordinates, none, poses, False, 0, 0, "cuda")
+    rec_t = torch.as_tensor(rec.coordinates, dtype=torch.float64, device="cuda")
+    clash_ms = cuda_ms(lambda: analysis.count_clashes(rec_t, coords, 1.9, "cuda"), CLASH_REPS)
+    transform_ms = cuda_ms(lambda: analysis.transform_ligand_batch(
+        lig.coordinates, none, poses, False, 0, 0, "cuda"), CLASH_REPS)
+    rmsd_ms = cuda_ms(lambda: analysis.pose_rmsd_matrix(coords[:N_POSES], "cuda"), CLASH_REPS)
+    g = poses.shape[0]
+    pairs = g * rec.num_atoms * lig.num_atoms
+    # each coordinate read once, each count written once
+    ops, nbytes = FLOPS_CLASH * pairs, 8 * (3 * rec.num_atoms + 3 * g * lig.num_atoms + g)
+    by_ops, by_bytes = ops / PEAK_F64 * 1e3, nbytes / PEAK_BYTES * 1e3
+    bnd, by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    chunks = analysis.clash_chunks(g, rec.num_atoms, lig.num_atoms)
+    clashes = analysis.count_clashes(rec_t, coords, 1.9, "cuda")
+    say(f"phase 25: [{card}] clash count on the card, {g} poses x {rec.num_atoms} x "
+        f"{lig.num_atoms} atoms = {pairs:.4g} pairs (float64, chunks of {chunks[0]} poses x "
+        f"{chunks[1]} receptor atoms): {clash_ms:.3f} ms a call, bound {bnd:.4f} ms "
+        f"({by}: {ops:.4g} float64 operations over {PEAK_F64 / 1e12:.0f} TFLOP/s, "
+        f"{nbytes} bytes over {PEAK_BYTES / 1e12:.2f} TB/s), {clash_ms / bnd:.1f}x its "
+        f"bound; {int(clashes.sum())} clashes in all, {int((clashes > 0).sum())} poses with "
+        f"one; pose transform of the {g} poses {transform_ms:.3f} ms, one swarm's "
+        f"{N_POSES} x {N_POSES} RMSD matrix {rmsd_ms:.3f} ms")
+    return clash_ms, bnd, by, pairs
+
+
+def workflow_phase(card, counters, glob_poses_s):
+    """Phase 25: raw PDB files -> ``lightdock-tpu-torch-tools setup`` ->
+    ``lightdock-tpu-torch`` (the glob) -> ``lightdock-tpu-torch-analysis``
+    on the card, the native writer held and timed.  ``glob_poses_s`` is
+    phase 20's resumed glob.  Returns each kernel's launches by site."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        writer = writer_timings(card, work)
+
+        # 1ppe DFIRE: setup, the glob with --metrics, the writer in turns.
+        run, setup, glob, setup_s = workflow_setup(counters, work, "dfire", "dfire",
+                                                   DFIRE_ATOMS, WORKFLOW_SWARMS)
+        label = f"workflow 1ppe DFIRE {WORKFLOW_SWARMS} x {N_POSES}"
+        metrics = run / "metrics.jsonl"
+        launches, run_s, _ = cli_run(counters, run, [setup, glob, STEPS, "dfire",
+                                                     "--metrics", metrics])
+        only(launches, "dfire_pairs", STEPS, label)
+        summary = json.loads(metrics.read_text().splitlines()[-1])
+        dirs = sorted(q.name for q in run.glob("swarm_*"))
+        check(dirs == sorted(f"swarm_{i}" for i in range(WORKFLOW_SWARMS)),
+              f"{label}: swarm directories {dirs[:4]}...")
+        last = np.stack([sidecar_scores(run / f"swarm_{i}", STEPS)
+                         for i in range(WORKFLOW_SWARMS)])
+        check(bool(np.isfinite(last).all()), f"{label}: non-finite scores")
+        held = held_snapshots(run)
+        check(held == WORKFLOW_SWARMS * (1 + STEPS // 10), f"{label}: {held} snapshots")
+        say(f"phase 25: [{card}] {label}: tools setup ({DFIRE_ATOMS[0]} x {DFIRE_ATOMS[1]}"
+            f"-atom PDB files, {WORKFLOW_SWARMS} swarms x {N_POSES} glowworms) "
+            f"{setup_s:.3f} s; "
+            f"`lightdock-tpu-torch setup.json 'init/initial_positions_*.dat' {STEPS} dfire "
+            f"--metrics` in {run_s:.3f} s, kernel launches {launches}; --metrics summary "
+            f"{summary['poses_per_s']} poses/s with the native writer (phase 20's resumed "
+            f"glob in this run: {glob_poses_s}); {held} snapshots equal to "
+            f"format_gso_output of their sidecars")
+        for s in range(WORKFLOW_SUBSET):      # before any analysis writes there
+            shutil.copytree(run / f"swarm_{s}", work / "dfire_copy" / f"swarm_{s}")
+        turns = glob_writer_turns(counters, run, setup, glob)
+        held += sum(held_snapshots(run.parent / f"{run.name}_turn_{i}")
+                    for i in range(WORKFLOW_AB_RUNS))
+        say(f"phase 25: [{card}] {label}: the glob's --metrics poses/s in turns, plain "
+            f"writer {turns['plain']}, native writer {turns['native']} (native / plain "
+            f"{np.mean(turns['native']) / np.mean(turns['plain']):.3f}x)")
+
+        # The analysis on the card: rank over every pose, cluster, all.
+        rank_s, rank_out = analysis_run(counters, ["rank", run, STEPS, "--setup", setup])
+        ranked = (run / "rank_by_scoring.list").read_text().splitlines()
+        check(len(ranked) == WORKFLOW_SWARMS * N_POSES + 1,
+              f"{label}: rank listed {len(ranked) - 1} poses")
+        cluster_s, cluster_out = analysis_run(counters, ["cluster", run, STEPS, "--setup", setup])
+        all_s, all_out = analysis_run(counters, ["all", run, STEPS, "--setup", setup])
+        reprs = [run / f"swarm_{i}" / "cluster.repr" for i in range(WORKFLOW_SWARMS)]
+        n_reprs = sum(len(f.read_text().splitlines()) for f in reprs)
+        tops = sorted(q.name for q in (run / "top").glob("top_*.pdb"))
+        ranked = (run / "rank_by_scoring.list").read_text().splitlines()
+        check(len(ranked) == n_reprs + 1 and len(tops) == 10,
+              f"{label}: {len(ranked) - 1} ranked of {n_reprs} representatives, tops {tops}")
+        say(f"phase 25: [{card}] {label}: analysis on the card: rank with metrics over "
+            f"{WORKFLOW_SWARMS * N_POSES} poses {rank_s:.3f} s ({rank_out}); cluster "
+            f"{cluster_s:.3f} s ({cluster_out}); all {all_s:.3f} s ({n_reprs} "
+            f"representatives ranked, {len(tops)} top complexes); no kernel launched")
+        clash_ms, clash_bound, clash_by, pairs = clash_timing(card, run, STEPS)
+
+        # The card's files against the CPU's on the first swarms.
+        by_platform = card_against_cpu(counters, work / "dfire_copy", setup, STEPS,
+                                       f"1ppe DFIRE, {WORKFLOW_SUBSET} swarms")
+        say(f"phase 25: [{card}] 1ppe DFIRE, {WORKFLOW_SUBSET} swarms: rank with metrics "
+            f"over {WORKFLOW_SUBSET * N_POSES} poses then all, card "
+            f"{by_platform['cuda'][0]:.3f} s + {by_platform['cuda'][1]:.3f} s, CPU "
+            f"{by_platform['cpu'][0]:.3f} s + {by_platform['cpu'][1]:.3f} s; every file "
+            f"byte-identical")
+
+        # DNA + ANM at full width: the ligand ANM transform on the card.
+        dna, dna_setup, dna_glob, dna_setup_s = workflow_setup(
+            counters, work, "dna", "dna", DNA_ATOMS, WORKFLOW_SUBSET, num_anm=DNA_ANM)
+        label = (f"workflow 1azp DNA + ANM ({DNA_ATOMS[0]} x {DNA_ATOMS[1]}, {DNA_ANM} + "
+                 f"{DNA_ANM} modes, {WORKFLOW_SUBSET} x {N_POSES})")
+        dna_launches, dna_s, _ = cli_run(counters, dna, [dna_setup, dna_glob,
+                                                         CLI_SHORT_STEPS, "dna"])
+        only(dna_launches, "elec_vdw_pairs", CLI_SHORT_STEPS, label)
+        cols = snapshot_columns(dna / "swarm_0" / f"gso_{CLI_SHORT_STEPS}.out")
+        check(cols == 7 + 2 * DNA_ANM, f"{label}: {cols} pose columns")
+        dna_held = held_snapshots(dna)
+        held += dna_held
+        dna_platform = card_against_cpu(counters, dna, dna_setup, CLI_SHORT_STEPS, label,
+                                        extra=("--anm-dir", dna))
+        say(f"phase 25: [{card}] {label}: tools setup {dna_setup_s:.3f} s; "
+            f"{CLI_SHORT_STEPS} steps in {dna_s:.3f} s, kernel launches {dna_launches}, "
+            f"{cols} pose columns, {dna_held} snapshots equal to format_gso_output of "
+            f"their sidecars; rank over {WORKFLOW_SUBSET * N_POSES} poses then all, card "
+            f"{dna_platform['cuda'][0]:.3f} s + {dna_platform['cuda'][1]:.3f} s, CPU "
+            f"{dna_platform['cpu'][0]:.3f} s + {dna_platform['cpu'][1]:.3f} s; every file "
+            f"byte-identical")
+    say(f"phase 25: [{card}] done in {time.perf_counter() - t_phase:.1f} s: {held} "
+        f"snapshots held; writer ms (native, plain, sidecar) {writer}; clash count "
+        f"{clash_ms:.3f} ms against a {clash_bound:.4f} ms bound ({clash_by}) over "
+        f"{pairs:.4g} pairs")
+    return ({"phase 25 glob": STEPS, "phase 25 writer turns": WORKFLOW_AB_RUNS * STEPS},
+            {"phase 25 DNA + ANM": CLI_SHORT_STEPS})
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
-           rank_launches=None, mixed_launches=None):
+           rank_launches=None, mixed_launches=None, workflow_launches=None):
     """A kernel's entry of the kernels line; ``rank_launches`` maps each
     sharded phase to the kernel's launches on each of its ranks,
     ``mixed_launches`` each of phase 24's sites (a float64 state scored at
-    float32) to the kernel's launches there."""
+    float32), ``workflow_launches`` each of phase 25's runs to the
+    kernel's launches there."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
-            "rank_launches": rank_launches or {}, "mixed_launches": mixed_launches or {}}
+            "rank_launches": rank_launches or {}, "mixed_launches": mixed_launches or {},
+            "workflow_launches": workflow_launches or {}}
 
 
 def main() -> int:
@@ -2686,9 +3064,13 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     built = _build.load_all(["dfire_pairs", "elec_vdw_pairs", "dfire_pairs_v1",
-                             "elec_vdw_pairs_v1", "probes"])
+                             "elec_vdw_pairs_v1", "probes", "io_native"])
     build_s = time.perf_counter() - t0
     for name, lib in built.items():
+        if name == "io_native":
+            say(f"phase 1: built {lib.path.name} (the host IO library, "
+                f"{_build.find_cxx()} {lib.build_seconds:.2f} s)")
+            continue
         ptxas = [ln.strip() for ln in lib.log.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         say(f"phase 1: built {lib.path.name} (nvcc {lib.build_seconds:.2f} s); "
@@ -2809,7 +3191,7 @@ def main() -> int:
 
     # -- 19-20. the command line ------------------------------------------------
     cli_path_phase(card, counters)
-    cli_rest_phase(card, counters)
+    glob_poses_s = cli_rest_phase(card, counters)
 
     # -- 21-23. ranks of torch.distributed on the card ---------------------------
     by_rank = sharded_swarm_phase(card, dfire.poses_per_s)
@@ -2822,6 +3204,9 @@ def main() -> int:
 
     # -- 24. a float64 state scored at float32; the precision tool ----------------
     mixed_sites = mixed_phase(card, counters)
+
+    # -- 25. setup, the run and the analysis from raw PDB files ------------------
+    k1_workflow, k3_workflow = workflow_phase(card, counters, glob_poses_s)
 
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
@@ -2853,10 +3238,12 @@ def main() -> int:
     say(json.dumps({"kernels": [
         record("dfire_pairs", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
                f"{pallas}:1088", k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound,
-               rank_launches=k1_sites, mixed_launches=mixed_sites["dfire_pairs"]),
+               rank_launches=k1_sites, mixed_launches=mixed_sites["dfire_pairs"],
+               workflow_launches=k1_workflow),
         record("elec_vdw_pairs", "lightdock_tpu_torch/csrc/elec_vdw_pairs.cu",
                f"{pallas}:1325", k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound,
-               rank_launches=k3_sites, mixed_launches=mixed_sites["elec_vdw_pairs"]),
+               rank_launches=k3_sites, mixed_launches=mixed_sites["elec_vdw_pairs"],
+               workflow_launches=k3_workflow),
         record("dfire_pairs_worklist", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
                f"{pallas}:1115", k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
         record("dfire_pairs_v1", "lightdock_tpu_torch/csrc/dfire_pairs_v1.cu",

@@ -2,9 +2,10 @@
 
 Copy of ``lightdock_tpu/analysis.py`` ``DEFAULT_RMSD_CUTOFF``,
 ``pose_rmsd_matrix``, ``Cluster`` and ``cluster_bsas`` (NumPy), held equal
-to the originals by ``tests/test_torch_host.py``.  The rest of that module
-(conformations, ranking, top-N) is not ported: it imports no JAX and
-serves the port's ``gso_N.out`` as it is.
+to the originals by ``tests/test_torch_host.py``; the precision tool
+clusters with them.  ``cluster_bsas_from_rmsd`` is the BSAS loop alone,
+on a given RMSD matrix: the port's analysis (``analysis.py``, the rest of
+that module) computes the matrix on the card and clusters with it here.
 """
 
 from __future__ import annotations
@@ -39,8 +40,13 @@ def cluster_bsas(coords: np.ndarray, scoring: np.ndarray,
     """BSAS clustering: visit poses best-scoring first; join the first
     cluster whose representative is within ``cutoff`` RMSD, else found a
     new cluster."""
+    return cluster_bsas_from_rmsd(pose_rmsd_matrix(coords), scoring, cutoff)
+
+
+def cluster_bsas_from_rmsd(rmsd: np.ndarray, scoring: np.ndarray,
+                           cutoff: float = DEFAULT_RMSD_CUTOFF) -> List[Cluster]:
+    """``cluster_bsas`` on the (G, G) pairwise RMSD matrix ``rmsd``."""
     order = np.argsort(-scoring, kind="stable")
-    rmsd = pose_rmsd_matrix(coords)
     clusters: List[Cluster] = []
     for g in order:
         for c in clusters:

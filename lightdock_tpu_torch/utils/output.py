@@ -1,12 +1,15 @@
 """gso_N.out snapshots and their full-precision ``.npz`` sidecars.
 
-Copy of ``lightdock_tpu/utils/output.py`` without its optional C writer:
-the text is rendered in Python, byte-compatible with the reference
-(src/swarm.rs:128-167): a header line, then per glowworm the pose tuple at
-7 decimals, the literal ``    0    0   `` column pair, luciferin at 8
-decimals, neighbour count, vision range at 3 decimals and scoring at 8
-decimals.  ``read_gso_output`` parses a snapshot back into arrays (the
-text resume path).
+Port of ``lightdock_tpu/utils/output.py``.  Each snapshot is written by
+the port's native writer (``utils.native.write_gso``, ``csrc/io_native.cpp``),
+byte-compatible with the reference (src/swarm.rs:128-167): a header line,
+then per glowworm the pose tuple at 7 decimals, the literal
+``    0    0   `` column pair, luciferin at 8 decimals, neighbour count,
+vision range at 3 decimals and scoring at 8 decimals.
+``format_gso_output`` renders the same text in Python: it is the writer's
+plain version, which the tests and ``chip_smoke.py`` hold it against, and
+no run writes through it.  ``read_gso_output`` parses a snapshot back
+into arrays (the text resume path).
 """
 
 from __future__ import annotations
@@ -16,11 +19,14 @@ import re
 
 import numpy as np
 
+from . import native
+
 HEADER = "#Coordinates  RecID  LigID  Luciferin  Neighbor's number  Vision Range  Scoring"
 
 
 def format_gso_output(poses, luciferin, num_neighbors, vision, scoring) -> str:
-    """Render the file body as a string."""
+    """Render the file body as a string (the native writer's plain
+    version)."""
     lines = [HEADER]
     for g in range(poses.shape[0]):
         tup = ", ".join(f"{v:.7f}" for v in poses[g])
@@ -32,10 +38,8 @@ def format_gso_output(poses, luciferin, num_neighbors, vision, scoring) -> str:
 
 
 def write_gso_output(path, poses, luciferin, num_neighbors, vision, scoring) -> None:
-    """Write one snapshot."""
-    poses = np.asarray(poses, dtype=np.float64)
-    pathlib.Path(path).write_text(
-        format_gso_output(poses, luciferin, num_neighbors, vision, scoring))
+    """Write one snapshot with the native writer."""
+    native.write_gso(path, poses, luciferin, num_neighbors, vision, scoring)
 
 
 def sidecar_path(out_path) -> pathlib.Path:

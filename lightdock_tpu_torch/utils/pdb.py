@@ -1,11 +1,12 @@
 """Minimal PDB structure reader.
 
-Copy of ``Structure`` and the pure-Python path of ``parse_pdb`` from
-``lightdock_tpu/utils/pdb.py`` (its optional C reader is not copied: the
-Python path computes the same).  Atom order is file order (ATOM/HETATM
-records), which matches the reference's chains -> residues -> atoms
-flattening (reference src/dfire.rs:132-186) for the sorted single-model
-files the LightDock setup tooling writes.
+Port of ``lightdock_tpu/utils/pdb.py``: ``parse_pdb`` reads through the
+port's native reader (``utils.native.parse_pdb``, ``csrc/io_native.cpp``),
+as the JAX package's reads through its own; ``parse_pdb_plain`` is the
+same reader in Python, its plain version for the tests.  Atom order is
+file order (ATOM/HETATM records), which matches the reference's chains ->
+residues -> atoms flattening (reference src/dfire.rs:132-186) for the
+sorted single-model files the LightDock setup tooling writes.
 
 Columns are fixed: atom name [12:16], residue [17:20], chain [21],
 residue serial [22:26], insertion code [26], x/y/z [30:38], [38:46],
@@ -20,6 +21,8 @@ import pathlib
 from typing import List
 
 import numpy as np
+
+from . import native
 
 
 @dataclasses.dataclass
@@ -38,7 +41,13 @@ class Structure:
 
 
 def parse_pdb(path) -> Structure:
-    """Parse ATOM/HETATM records of a PDB file into a Structure."""
+    """Parse ATOM/HETATM records of a PDB file into a Structure (the
+    native reader)."""
+    return Structure(*native.parse_pdb(path))
+
+
+def parse_pdb_plain(path) -> Structure:
+    """``parse_pdb`` in Python: the native reader's plain version."""
     atom_names: List[str] = []
     res_names: List[str] = []
     res_ids: List[str] = []

@@ -1,7 +1,7 @@
 """Deterministic random stream compatible with the reference engine.
 
-Copy of ``uniform_f64_stream`` and the ChaCha20 code it needs from
-``lightdock_tpu/utils/rng.py``.  The reference draws one uniform f64 per
+Copy of ``uniform_f64_stream``, ``ReferenceRng`` and the ChaCha20 code
+they need from ``lightdock_tpu/utils/rng.py``.  The reference draws one uniform f64 per
 glowworm per step from Rust ``rand 0.7``'s ``StdRng`` (ChaCha20) seeded by
 ``seed_from_u64``, which expands the u64 seed into a 32-byte key with a
 PCG32 stream; ``gen::<f64>()`` converts ``next_u64`` with the 53-bit
@@ -79,6 +79,36 @@ def chacha20_keystream_words(key_words: np.ndarray, n_words: int) -> np.ndarray:
         working += state
     # words of block b are working[:, b]; stream order is block-major.
     return working.T.reshape(-1)[:n_words]
+
+
+class ReferenceRng:
+    """Sequential access to the rand-0.7-compatible uniform f64 stream
+    (the draws of ``uniform_f64_stream``, handed out in order; the setup's
+    pose sampler, ``setup_sim.sample_glowworms``, draws from it)."""
+
+    _CHUNK = 4096  # doubles generated per refill
+
+    def __init__(self, seed: int):
+        self.key = expand_seed(seed)
+        self._drawn = 0          # doubles handed out so far
+        self._buf = np.empty(0, dtype=np.float64)
+        self._buf_start = 0      # stream index of _buf[0]
+
+    def gen(self, n: int = 1) -> np.ndarray:
+        """Draw the next ``n`` uniform f64 values in [0, 1)."""
+        end = self._drawn + n
+        if end > self._buf_start + len(self._buf):
+            total = max(end, self._drawn + self._CHUNK)
+            words = chacha20_keystream_words(self.key, 2 * total)
+            lo = words[0::2].astype(np.uint64)
+            hi = words[1::2].astype(np.uint64)
+            u64 = lo | (hi << np.uint64(32))
+            self._buf = (u64 >> np.uint64(11)).astype(np.float64) * (2.0 ** -53)
+            self._buf_start = 0
+        off = self._drawn - self._buf_start
+        out = self._buf[off:off + n].copy()
+        self._drawn = end
+        return out
 
 
 def uniform_f64_stream(seed: int, n: int) -> np.ndarray:

@@ -13,15 +13,19 @@ pytest.importorskip("torch")
 
 import __graft_entry__  # noqa: E402
 from lightdock_tpu import analysis as janalysis  # noqa: E402
+from lightdock_tpu import setup_sim as jsetup  # noqa: E402
 from lightdock_tpu import constants as jc  # noqa: E402
 from lightdock_tpu.engine import energy_batch as eb  # noqa: E402
 from lightdock_tpu.scoring import models as jmodels  # noqa: E402
 from lightdock_tpu.scoring import potentials as jpot  # noqa: E402
 from lightdock_tpu.scoring import tables as jtables  # noqa: E402
 from lightdock_tpu.utils import output as jout  # noqa: E402
+from lightdock_tpu.utils import pdb as jpdb  # noqa: E402
 from lightdock_tpu.utils import positions as jpos  # noqa: E402
 from lightdock_tpu.utils import rng as jrng  # noqa: E402
+from lightdock_tpu_torch import analysis as tanalysis  # noqa: E402
 from lightdock_tpu_torch import constants as tc  # noqa: E402
+from lightdock_tpu_torch import setup_sim as tsetup  # noqa: E402
 from lightdock_tpu_torch import standin  # noqa: E402
 from lightdock_tpu_torch.engine import params as tparams  # noqa: E402
 from lightdock_tpu_torch.engine.energy_kernel import kernel_params  # noqa: E402
@@ -30,6 +34,7 @@ from lightdock_tpu_torch.scoring import potentials as tpot  # noqa: E402
 from lightdock_tpu_torch.scoring import tables as ttables  # noqa: E402
 from lightdock_tpu_torch.utils import clusters as tclusters  # noqa: E402
 from lightdock_tpu_torch.utils import output as tout  # noqa: E402
+from lightdock_tpu_torch.utils import pdb as tpdb  # noqa: E402
 from lightdock_tpu_torch.utils import positions as tpos  # noqa: E402
 from lightdock_tpu_torch.utils import rng as trng  # noqa: E402
 
@@ -211,6 +216,61 @@ def test_clusters_match(cutoff):
     assert tclusters.DEFAULT_RMSD_CUTOFF == janalysis.DEFAULT_RMSD_CUTOFF
     assert [dataclasses.astuple(c) for c in ours] == [dataclasses.astuple(c) for c in ref]
     assert any(len(c.members) > 1 for c in ours) and len(ours) > 1
+
+
+def test_reference_rng_matches():
+    """Draws of every size, across the 4,096-double refills, equal the
+    JAX package's stream and ``uniform_f64_stream``."""
+    ours, ref = trng.ReferenceRng(324324), jrng.ReferenceRng(324324)
+    drawn = []
+    for n in [1, 3, 2, 4090, 7, 1, 5000, 3]:
+        a, b = ours.gen(n), ref.gen(n)
+        np.testing.assert_array_equal(a, b)
+        drawn.append(a)
+    np.testing.assert_array_equal(np.concatenate(drawn),
+                                  trng.uniform_f64_stream(324324, sum(map(len, drawn))))
+
+
+def test_analysis_host_pieces_match(tmp_path):
+    """The host parts copied from ``lightdock_tpu.analysis`` and
+    ``setup_sim``: ``rewrite_pdb_coords`` (with a serial offset),
+    ``write_cluster_repr``, ``collect_swarm_results`` (numeric swarm order,
+    cluster representatives), ``prepare_structure``, and the plain PDB
+    reader against the JAX package's."""
+    setup, _ = standin.write_complex(tmp_path, "dfire", 30, 12, 2, seed=2)
+    lig_pdb = tmp_path / "lightdock_lig.pdb"
+    coords = np.random.RandomState(4).uniform(-999, 999, (12, 3))
+    for module, name in ((tanalysis, "a.pdb"), (janalysis, "b.pdb")):
+        with open(tmp_path / name, "w") as fh:
+            assert module.rewrite_pdb_coords(lig_pdb, coords, fh, serial_offset=99990) == 12
+    assert (tmp_path / "a.pdb").read_text() == (tmp_path / "b.pdb").read_text()
+    clusters = [tclusters.Cluster(3, -1.234565, [3, 1]), tclusters.Cluster(0, 7.0, [0])]
+    tanalysis.write_cluster_repr(clusters, tmp_path / "a.repr")
+    janalysis.write_cluster_repr([janalysis.Cluster(*dataclasses.astuple(c))
+                                  for c in clusters], tmp_path / "b.repr")
+    assert (tmp_path / "a.repr").read_text() == (tmp_path / "b.repr").read_text()
+    rng = np.random.RandomState(6)
+    for s in (10, 2, 0):
+        out = tmp_path / "root" / f"swarm_{s}"
+        out.mkdir(parents=True)
+        jout.write_gso_output(out / "gso_5.out", rng.standard_normal((4, 7)),
+                              rng.uniform(0, 9, 4), rng.randint(0, 5, 4),
+                              rng.uniform(0, 5, 4), rng.standard_normal(4))
+    (tmp_path / "root" / "swarm_10" / "cluster.repr").write_text("0:2:1.0:3:x\n1:1:0.5:1:y\n")
+    ours = tanalysis.collect_swarm_results(tmp_path / "root", 5)
+    ref = janalysis.collect_swarm_results(tmp_path / "root", 5)
+    assert [(r.swarm, r.glowworm) for r in ours] == [(r.swarm, r.glowworm) for r in ref]
+    assert [r.swarm for r in ours] == [0] * 4 + [2] * 4 + [10] * 2
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a.pose, b.pose)
+        assert (a.luciferin, a.num_neighbors, a.vision, a.scoring) == \
+            (b.luciferin, b.num_neighbors, b.vision, b.scoring)
+    for module, name in ((tsetup, "p.pdb"), (jsetup, "q.pdb")):
+        assert module.prepare_structure(lig_pdb, tmp_path / name, True, True, True) == 12
+    assert (tmp_path / "p.pdb").read_text() == (tmp_path / "q.pdb").read_text()
+    ours, ref = tpdb.parse_pdb_plain(lig_pdb), jpdb.parse_pdb(lig_pdb)
+    assert (ours.atom_names, ours.res_ids) == (ref.atom_names, ref.res_ids)
+    np.testing.assert_array_equal(ours.coordinates, ref.coordinates)
 
 
 @pytest.mark.parametrize("use_anm,anm_rec,anm_lig", [(False, 0, 0), (True, 2, 3),

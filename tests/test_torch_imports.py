@@ -28,6 +28,7 @@ PORT_MODULES = [
     "lightdock_tpu_torch.utils.setupfile",
     "lightdock_tpu_torch.utils.metrics",
     "lightdock_tpu_torch.utils.clusters",
+    "lightdock_tpu_torch.utils.native",
     "lightdock_tpu_torch.ops.quaternion",
     "lightdock_tpu_torch.ops.tiling",
     "lightdock_tpu_torch.ops.cull",
@@ -46,6 +47,10 @@ PORT_MODULES = [
     "lightdock_tpu_torch.simulation",
     "lightdock_tpu_torch.cli",
     "lightdock_tpu_torch.precision_fidelity",
+    "lightdock_tpu_torch.setup_sim",
+    "lightdock_tpu_torch.cli_tools",
+    "lightdock_tpu_torch.analysis",
+    "lightdock_tpu_torch.cli_analysis",
     "lightdock_tpu_torch.parallel",
     "lightdock_tpu_torch.parallel.mesh",
     "lightdock_tpu_torch.parallel.multihost",
@@ -73,8 +78,10 @@ def test_port_never_imports_jax():
     kernel energy path of each generation on them, a two-swarm farm that
     takes a step, a sharded kernel step on a one-process mesh, the P6
     probe, a command-line run on the CPU from the files of
-    ``standin.write_complex`` (PDB files, setup.json, positions, ANM) and
-    the precision tool with its hybrids on such files, no ``jax``, no
+    ``standin.write_complex`` (PDB files, setup.json, positions, ANM), the
+    precision tool with its hybrids on such files, and ``tools setup``
+    then ``analysis all`` on the CPU (the native reader and writer built
+    and used), no ``jax``, no
     ``lightdock_tpu`` or ``lightdock_tpu.*``, no ``__graft_entry__`` and
     no ``scripts`` is in ``sys.modules``; ``chip_smoke.py`` imports none
     of them."""
@@ -115,6 +122,21 @@ def test_port_never_imports_jax():
             "    with contextlib.redirect_stderr(io.StringIO()):\n"
             "        pf.main(['--device', 'cpu', '--standin', work, '--steps', '10',\n"
             "                 '--hybrids', '--out', os.path.join(work, 'p.json')])\n"
+            "    from lightdock_tpu_torch import cli_analysis, cli_tools\n"
+            "    run = os.path.join(work, 'run')\n"
+            "    with contextlib.redirect_stdout(io.StringIO()):\n"
+            "        assert cli_tools.main(['setup', os.path.join(work, 'lightdock_rec.pdb'),\n"
+            "                               os.path.join(work, 'lightdock_lig.pdb'), '-s', '2',\n"
+            "                               '-g', '4', '--workdir', run]) == 0\n"
+            "        os.makedirs(os.path.join(run, 'swarm_0'))\n"
+            "        assert cli.main([os.path.join(run, 'setup.json'),\n"
+            "                         os.path.join(run, 'init', 'initial_positions_0.dat'), '1',\n"
+            "                         'dna', '--platform', 'cpu',\n"
+            "                         '--output-dir', os.path.join(run, 'swarm_0')]) == 0\n"
+            "        assert cli_analysis.main(['all', run, '1', '--setup',\n"
+            "                                  os.path.join(run, 'setup.json'),\n"
+            "                                  '--platform', 'cpu']) == 0\n"
+            "    assert os.path.exists(os.path.join(run, 'top', 'top_1.pdb'))\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
