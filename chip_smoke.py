@@ -8,8 +8,8 @@ host IO library (``csrc/io_native.cpp``) with the host C++ compiler (one
 process per source, all at once), then drives five paths and a farm, each
 on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed,
 the command line on the files of such complexes, the sharded paths on
-ranks of ``torch.distributed``, and the workflow from raw PDB files to
-ranked complexes:
+ranks of ``torch.distributed``, the workflow from raw PDB files to
+ranked complexes, and the benchmark entry point with its crossover map:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernel build times with ptxas' registers and spills (and
@@ -227,6 +227,20 @@ ranked complexes:
     modes, 4 x 200) run 10 steps (10 K3 launches, 27 pose columns) and
     analysed on the card and the CPU alike; every snapshot the phase writes
     equals ``format_gso_output`` of its sidecar's state.
+26. runs the port's benchmark entry point as a user does, ``python -m
+    lightdock_tpu_torch.bench`` in a process of its own with the default
+    energy mode ('auto'), for the default system (the 1ppe stand-in and the
+    32-swarm farm on stderr), ``--system 1azp`` and ``--system 1k4c``: the
+    last line ``bench.py``'s keys and ``device`` naming the card, a
+    positive value, the mode on stderr ``pick_energy_mode``'s (for 200
+    poses a call, 6,400 in the farm), and where it is 'kernel' the launches
+    of the timed runs (K1 500 and the farm's 50, K3 500, K2 500, no other
+    kernel's); then ``--crossover`` at three points whose measured lead lies
+    outside the spread between runs (one swarm at 1ppe, the kernel's, and at
+    1czy DNA, dense's; a 32-swarm farm at 1ppe r200, the kernel's), printing
+    each point's line and the table: the bench's pick is
+    ``pick_energy_mode``'s and lost by no more than 1.2x there.  The whole
+    map is ``bench --crossover``'s, on demand (``engine.runner``).
 
 Ranks that share one card time the sharded paths' correctness, not their
 scaling.
@@ -243,7 +257,8 @@ device, when it is not run from a checkout, or when any check fails (a
 rank's failure included).  The last line of its output is the JSON device
 record; the line before it lists the kernels, with each kernel's launches
 a rank in the sharded phases (``rank_launches``), at phase 24's sites
-(``mixed_launches``) and in phase 25's runs (``workflow_launches``).
+(``mixed_launches``), in phase 25's runs (``workflow_launches``) and in
+phase 26's bench runs (``bench_launches``).
 """
 
 from __future__ import annotations
@@ -318,6 +333,15 @@ MIXED_V1_STEPS, MIXED_CPU_STEPS, PART_A_MEDIAN = 10, 10, 1e-5
 # timed WRITER_REPS times a turn, the clash count CLASH_REPS calls.
 WORKFLOW_SWARMS, WORKFLOW_SUBSET, WORKFLOW_AB_RUNS = 32, 4, 4
 WRITER_REPS, CLASH_REPS = 20, 5
+# Phase 26: the keys of the bench's last line, each bench system's pair
+# kernel, the seconds a bench process may take, and the crossover's points
+# (swarms, labels): each mode's lead there lies outside the spread between
+# runs (engine.runner.CROSSOVER_MAP), so a 1.2x gate holds on any host.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device"}
+BENCH_KERNELS = {"1ppe": "dfire_pairs", "1azp": "elec_vdw_pairs",
+                 "1k4c": "dfire_pairs_worklist"}
+BENCH_TIMEOUT = 600
+BENCH_CROSSOVERS = ((1, ("1ppe", "1czy dna")), (32, ("1ppe r200",)))
 # float64 operations a second outside the tensor cores (NVIDIA's H100 SXM
 # data sheet), and the clash count's float64 operations a receptor-ligand
 # pair (3 differences, 3 squares, 2 adds, 1 compare): its bound.
@@ -3019,18 +3043,137 @@ def workflow_phase(card, counters, glob_poses_s):
             {"phase 25 DNA + ANM": CLI_SHORT_STEPS})
 
 
+def bench_process(args):
+    """``python -m lightdock_tpu_torch.bench ARGS`` in a process of its own
+    from the checkout, with the default energy mode; returns (the parsed
+    last line of its standard output, the other lines, its standard
+    error)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LIGHTDOCK_BENCH_MODE", "LIGHTDOCK_BENCH_MULTISWARM")}
+    proc = subprocess.run([sys.executable, "-m", "lightdock_tpu_torch.bench", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    label = f"python -m lightdock_tpu_torch.bench {' '.join(args)}"
+    check(proc.returncode == 0, f"{label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        last = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"{label}: the last line is not one JSON object: {proc.stdout[-500:]!r}")
+    return last, lines[:-1], proc.stderr
+
+
+def stderr_value(stderr, prefix, label):
+    """The rest of the first standard-error line that starts with
+    ``prefix``."""
+    found = [ln[len(prefix):].strip() for ln in stderr.splitlines() if ln.startswith(prefix)]
+    check(bool(found), f"{label}: no '{prefix}' line on standard error")
+    return found[0]
+
+
+def bench_phase(card):
+    """Phase 26: the port's benchmark entry point, as a user runs it, and
+    the crossover map behind ``energy_mode='auto'``.  Returns each bench
+    system's pair-kernel launches (the timed runs; the farm's apart)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch import bench
+    from lightdock_tpu_torch.engine.runner import CROSSOVER_TIE, pick_energy_mode
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    sites = {}
+    for system in bench.METRICS:
+        t0 = time.perf_counter()
+        args = [] if system == "1ppe" else ["--system", system]
+        label = f"bench {system}"
+        last, _, err = bench_process(args)
+        check(set(last) == BENCH_KEYS, f"{label}: keys {sorted(last)}")
+        check(last["metric"] == bench.METRICS[system] and last["unit"] == "poses/s",
+              f"{label}: metric {last['metric']!r}, unit {last['unit']!r}")
+        check(last["value"] > 0 and last["vs_baseline"] > 0, f"{label}: {last}")
+        check(name in last["device"], f"{label}: device {last['device']!r} is not {name}")
+        params, positions, _, _ = bench.system(system)
+        picked = pick_energy_mode(params, "cuda", positions.shape[0])
+        mode = stderr_value(err, "energy mode:", label)
+        check(mode == f"{picked} (requested auto)",
+              f"{label}: energy mode {mode!r}, pick_energy_mode {picked!r}")
+        launches = json.loads(stderr_value(err, "kernel launches in the timed runs:", label))
+        kernel = BENCH_KERNELS[system]
+        runs = bench.STEPS * bench.REPEATS
+        if picked == "kernel":
+            only(launches, kernel, runs, label)
+        else:
+            check(sum(launches.values()) == 0, f"{label}: dense, yet {launches}")
+        sites[kernel] = {f"phase 26 bench {system}": launches[kernel]}
+        extra = ""
+        if system == "1ppe":
+            farm_picked = pick_energy_mode(params, "cuda",
+                                           bench.FARM_SWARMS * positions.shape[0])
+            farm_mode = stderr_value(err, "multi-swarm energy mode:", label)
+            check(farm_mode == f"{farm_picked} (requested auto)",
+                  f"{label}: farm {farm_mode!r}, pick_energy_mode {farm_picked!r}")
+            farm = json.loads(stderr_value(
+                err, "multi-swarm kernel launches in the timed run:", label))
+            if farm_picked == "kernel":
+                only(farm, kernel, bench.FARM_STEPS, f"{label} farm")
+            sites[kernel]["phase 26 bench 1ppe farm"] = farm[kernel]
+            extra = "; " + stderr_value(err, "multi-swarm aggregate:", label)
+        say(f"phase 26: [{card}] {label} ({time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(last)}; energy mode {picked}; "
+            f"{stderr_value(err, f'{bench.STEPS}-step wall-clock:', label)}; launches "
+            f"{launches[kernel]} of {kernel}{extra}")
+
+    t0 = time.perf_counter()
+    rows = []
+    for swarms, labels in BENCH_CROSSOVERS:
+        table, lines, _ = bench_process(["--crossover", "--swarms", str(swarms),
+                                         "--points", ",".join(labels)])
+        for line in lines:
+            say(f"phase 26: [{card}] {line}")
+        say(json.dumps(table))
+        check([row["point"] for row in table["crossover"]] == list(labels)
+              and table["swarms"] == swarms and name in table["device"],
+              f"crossover: {table['crossover']} on {table['device']!r}")
+        rows += table["crossover"]
+    for row in rows:
+        shape = types.SimpleNamespace(
+            method=row["method"], use_anm=row["rec_anm"],
+            rec_nmodes=np.zeros((row["anm_modes"], 0, 3)),
+            rec_coords=np.zeros((row["rec_atoms"], 3)),
+            lig_coords=np.zeros((row["lig_atoms"], 3)))
+        pick = pick_energy_mode(shape, "cuda", row["poses"])
+        check(row["pick"] == pick, f"crossover {row['point']}: pick {row['pick']} "
+              f"in the bench, {pick} here")
+        check(row["pick_lost_by"] <= CROSSOVER_TIE,
+              f"crossover {row['point']} x{row['swarms']}: auto picks {pick}, which "
+              f"lost by {row['pick_lost_by']:.3f}x (kernel {row['kernel_poses_s']:.1f}, "
+              f"dense {row['dense_poses_s']:.1f} poses/s)")
+    say(f"phase 26: [{card}] crossover at {len(rows)} points in "
+        f"{time.perf_counter() - t0:.1f} s: pick_energy_mode loses by at most "
+        f"{max(r['pick_lost_by'] for r in rows):.3f}x (tie {CROSSOVER_TIE}x); phase 26 done "
+        f"in {time.perf_counter() - t_phase:.1f} s")
+    return sites
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
-           rank_launches=None, mixed_launches=None, workflow_launches=None):
+           rank_launches=None, mixed_launches=None, workflow_launches=None,
+           bench_launches=None):
     """A kernel's entry of the kernels line; ``rank_launches`` maps each
     sharded phase to the kernel's launches on each of its ranks,
     ``mixed_launches`` each of phase 24's sites (a float64 state scored at
-    float32), ``workflow_launches`` each of phase 25's runs to the
-    kernel's launches there."""
+    float32), ``workflow_launches`` each of phase 25's runs and
+    ``bench_launches`` each of phase 26's bench runs to the kernel's
+    launches there."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
             "rank_launches": rank_launches or {}, "mixed_launches": mixed_launches or {},
-            "workflow_launches": workflow_launches or {}}
+            "workflow_launches": workflow_launches or {},
+            "bench_launches": bench_launches or {}}
 
 
 def main() -> int:
@@ -3208,6 +3351,9 @@ def main() -> int:
     # -- 25. setup, the run and the analysis from raw PDB files ------------------
     k1_workflow, k3_workflow = workflow_phase(card, counters, glob_poses_s)
 
+    # -- 26. the benchmark entry point and the crossover map ----------------------
+    bench_sites = bench_phase(card)
+
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
         "the port imported jax or the JAX package")
@@ -3239,13 +3385,16 @@ def main() -> int:
         record("dfire_pairs", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
                f"{pallas}:1088", k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound,
                rank_launches=k1_sites, mixed_launches=mixed_sites["dfire_pairs"],
-               workflow_launches=k1_workflow),
+               workflow_launches=k1_workflow,
+               bench_launches=bench_sites.get("dfire_pairs")),
         record("elec_vdw_pairs", "lightdock_tpu_torch/csrc/elec_vdw_pairs.cu",
                f"{pallas}:1325", k3_launches, k3_err, k3_ms, k3_plain_ms, k3_bound,
                rank_launches=k3_sites, mixed_launches=mixed_sites["elec_vdw_pairs"],
-               workflow_launches=k3_workflow),
+               workflow_launches=k3_workflow,
+               bench_launches=bench_sites.get("elec_vdw_pairs")),
         record("dfire_pairs_worklist", "lightdock_tpu_torch/csrc/dfire_pairs.cu",
-               f"{pallas}:1115", k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound),
+               f"{pallas}:1115", k2_launches, k2_err, k2_ms, k2_plain_ms, k2_bound,
+               bench_launches=bench_sites.get("dfire_pairs_worklist")),
         record("dfire_pairs_v1", "lightdock_tpu_torch/csrc/dfire_pairs_v1.cu",
                f"{pallas}:213", k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound,
                mixed_launches=mixed_sites["dfire_pairs_v1"]),

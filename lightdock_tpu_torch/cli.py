@@ -17,9 +17,11 @@ The run is on the CUDA card unless ``--platform cpu`` is given; without a
 card it raises (``engine.runner.cuda_device``) and never carries on on the
 CPU.  The flags are the JAX command line's, mapped so:
 
-- ``--energy-mode``: ``auto`` (= ``kernel``), ``kernel``, ``kernel_v1``,
-  ``dense``; JAX's ``pallas`` and ``xla`` are taken as ``kernel`` and
-  ``dense``.
+- ``--energy-mode``: ``auto`` (``engine.runner.pick_energy_mode``: on
+  the card ``kernel`` or ``dense`` by the method, receptor ANM and pair
+  count, from a crossover map measured on an H100; ``dense`` on the CPU),
+  ``kernel``, ``kernel_v1``, ``dense``; JAX's ``pallas`` and ``xla`` are
+  taken as ``kernel`` and ``dense``.
 - ``--energy-chunk``: the dense mode takes :func:`pick_energy_chunk`'s
   chunk by default; the kernel modes ignore it and score every pose in one
   call, as JAX's Pallas paths do.
@@ -81,10 +83,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps-per-save", type=int, default=10)
     ap.add_argument("--energy-mode", type=_energy_mode, choices=ENERGY_MODES,
                     default="auto",
-                    help="kernel: the v2 pair kernels (auto is kernel); "
-                         "kernel_v1: the v1 kernels; dense: the dense "
-                         "PyTorch energy.  JAX's pallas and xla are taken "
-                         "as kernel and dense")
+                    help="kernel: the v2 pair kernels; kernel_v1: the v1 "
+                         "kernels; dense: the dense PyTorch energy; auto: "
+                         "kernel or dense from the crossover map measured "
+                         "on an H100 (dense on the CPU).  JAX's pallas and "
+                         "xla are taken as kernel and dense")
     ap.add_argument("--dq-bf16", action="store_true",
                     help="store the DFIRE step tables in bfloat16 where the "
                          "mode reads them (kernel_v1, dense at float32)")

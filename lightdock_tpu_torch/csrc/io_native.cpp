@@ -6,7 +6,7 @@
 // The port's own copy of lightdock_tpu/native/io_native.cpp.  The Python
 // versions stay beside it as its plain versions (utils/pdb.py
 // parse_pdb_plain, utils/output.py format_gso_output) and its output must
-// equal theirs byte for byte.
+// equal theirs byte for byte, but for a NaN whose sign bit is set (below).
 //
 // PDB fields follow utils/pdb.py: ATOM/HETATM records, columns 13-16 atom
 // name, 18-20 residue name, 22 chain id, 23-26 residue serial, 27
@@ -20,8 +20,9 @@
 // below 2^32 is rendered from its exact binary value with integer
 // arithmetic (round half to even on the exact value, as Python's
 // format() and glibc's printf both do), the whole file in one buffer and
-// one fwrite; anything else goes to snprintf, and a NaN of either sign
-// is written "nan" as Python writes it.
+// one fwrite; anything else goes to snprintf.  A NaN is written "-nan"
+// where its sign bit is set and "nan" otherwise, as glibc's printf writes
+// it in the JAX package's copy (Python writes "nan" for both).
 
 #include <cerrno>
 #include <cctype>
@@ -93,7 +94,7 @@ template <int D>
 void put_fixed(std::string* out, double v) {
   static_assert(D >= 0 && D <= 9, "0 to 9 decimals");
   if (std::isnan(v)) {
-    out->append("nan");
+    out->append(std::signbit(v) ? "-nan" : "nan");
     return;
   }
   const double a = std::fabs(v);

@@ -9,10 +9,10 @@ the energy modes, ``run``, ``run_segmented`` with its metrics hook,
 modes (:func:`make_energy`) are 'kernel' (JAX's 'pallas': the v2 kernels
 of ``engine.energy_kernel``), 'kernel_v1' ('pallas_v1': K4 and K5),
 'dense' ('xla': ``energy_dense.batch_energy_chunked``) and 'auto', which
-is 'kernel': the JAX crossover map was measured on a TPU, and the port's
-own rule waits for H100 data.  A kernel runs on the card (the default
-device); where the caller asks for the CPU, its plain version runs
-instead.  ``energy_dtype`` scores at another dtype than the swarm state
+:func:`pick_energy_mode` (port of ``gso_jax.py``'s) resolves from a
+crossover map measured on an H100 and the poses of one energy call.  A kernel runs on the card (the
+default device); where the caller asks for the CPU, its plain version
+runs instead.  ``energy_dtype`` scores at another dtype than the swarm state
 (:func:`mixed_precision_energy`, port of ``gso_jax.py``'s): a float64
 swarm scored by the float32 kernels, or a float32 swarm by the float64
 dense energy.
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import pathlib
 import time
 from typing import Optional
@@ -40,6 +41,112 @@ from .params import BatchScoringParams, ensure_dfire_steps, torch_params
 
 ENERGY_MODES = ("auto", "kernel", "kernel_v1", "dense")
 RNG_MODES = ("reference", "native")
+
+log = logging.getLogger(__name__)
+
+# The crossover map, measured on an NVIDIA H100 80GB HBM3, 700.00 W by
+# ``python -m lightdock_tpu_torch.bench --crossover``: 50 steps (fewer
+# where the dense runs would pass 20 s), each mode's fastest of 5 or 7
+# runs, the modes in turns.  One swarm of 200 glowworms: seven runs of
+# the map in three calls, each on its own machine (1ppe r700 anm, 1czy
+# dna, 1azp l221 anm: four runs in two; 1czy: five in two).  Farms of 2
+# and 32 swarms (``--swarms``): one run in one call, and a second of the
+# 32-swarm 1ppe r200 point in another.  Each row: point, method, receptor
+# ANM, receptor and ligand atoms, poses a call, and the kernel mode's
+# poses/s over the dense mode's, lowest and highest over the runs.
+CROSSOVER_MAP = (
+    ("1ppe r200", "dfire", False, 200, 221, 200, 0.756, 0.978),
+    ("1czy", "dfire", False, 1281, 53, 200, 0.800, 1.236),
+    ("1ppe r340", "dfire", False, 340, 221, 200, 0.937, 1.320),
+    ("1ppe r700", "dfire", False, 700, 221, 200, 1.565, 2.520),
+    ("1ppe r1100", "dfire", False, 1100, 221, 200, 2.506, 4.050),
+    ("1ppe", "dfire", False, 1615, 221, 200, 3.918, 5.770),
+    ("1k4c", "dfire", False, 3413, 3268, 200, 95.07, 153.8),  # dense over 4-6 steps
+    ("1ppe r200 anm", "dfire", True, 200, 221, 200, 0.737, 0.975),
+    ("1czy anm", "dfire", True, 1281, 53, 200, 0.785, 1.039),
+    ("1ppe r700 anm", "dfire", True, 700, 221, 200, 1.400, 1.816),
+    ("1ppe anm", "dfire", True, 1615, 221, 200, 3.210, 5.013),
+    ("2uuy anm", "dfire", True, 1615, 415, 200, 5.850, 8.149),
+    ("1615x650 anm", "dfire", True, 1615, 650, 200, 9.826, 13.26),
+    ("1czy dna", "dna", False, 1281, 53, 200, 0.605, 0.638),
+    ("1czy dna anm", "dna", True, 1281, 53, 200, 0.584, 0.689),
+    ("1azp l221 anm", "dna", True, 1094, 221, 200, 0.811, 1.088),
+    ("1azp", "dna", False, 1094, 506, 200, 1.863, 2.229),
+    ("1azp anm", "dna", True, 1094, 506, 200, 1.622, 2.235),
+    ("1azp pydock anm", "pydock", True, 1094, 506, 200, 1.688, 2.356),
+    ("1ppe r200", "dfire", False, 200, 221, 400, 0.899, 0.899),
+    ("1czy", "dfire", False, 1281, 53, 400, 1.008, 1.008),
+    ("1czy anm", "dfire", True, 1281, 53, 400, 0.904, 0.904),
+    ("1czy dna", "dna", False, 1281, 53, 400, 0.678, 0.678),
+    ("1azp l221 anm", "dna", True, 1094, 221, 400, 1.150, 1.150),
+    ("1ppe r200", "dfire", False, 200, 221, 6400, 9.611, 10.92),
+    ("1czy", "dfire", False, 1281, 53, 6400, 17.67, 17.67),
+    ("1ppe", "dfire", False, 1615, 221, 6400, 97.09, 97.09),
+    ("1ppe r200 anm", "dfire", True, 200, 221, 6400, 10.92, 10.92),
+    ("1czy anm", "dfire", True, 1281, 53, 6400, 16.28, 16.28),
+    ("1czy dna", "dna", False, 1281, 53, 6400, 6.326, 6.326),
+    ("1czy dna anm", "dna", True, 1281, 53, 6400, 6.393, 6.393),
+    ("1azp l221 anm", "dna", True, 1094, 221, 6400, 19.48, 19.48),
+)
+# The kernel path of one swarm is bound by its host launches, so its
+# poses/s moves with the host (1.1-1.9x between runs of one point); the
+# dense mode is bound by the device from about 70k pairs and moves by a
+# few per cent.  A call of the kernel modes scores every pose at one set
+# of launches, while the dense mode's device time grows with poses x
+# pairs, so the crossover is one of pair-poses a call.  At 400 poses a
+# call the picks at the thresholds lose by at most 1.112x; at 6,400 (a
+# 32-swarm farm) the kernel wins everywhere, by 6.3x at 1czy-sized DNA
+# and 9.6x at 44.2k DFIRE.  For one swarm of 200, DFIRE with a rigid
+# receptor crosses between 44k and 75k pairs, DFIRE with a receptor ANM
+# between 68k and 155k, DNA and PYDOCK (rigid or
+# ANM: their dense energy has no step loop, and K3's wrapper costs the
+# host more) between 242k and 554k.  A lead below CROSSOVER_TIE (the
+# spread between runs) goes to the kernel, but at 242k elec/vdw, where the
+# modes tie on a fast host and the kernel alone slows on a slow one, to
+# dense.  At 1czy's size with a rigid receptor each mode led by more than
+# the tie in some run: no threshold holds it.  The stand-ins do not cull
+# (every tile pair is active), so on real geometry the kernel's advantage
+# is understated.
+CROSSOVER_TIE = 1.2
+KERNEL_AUTO_MIN_PAIR_POSES = 60_000 * 200             # DFIRE, rigid receptor
+KERNEL_AUTO_DFIRE_ANM_MIN_PAIR_POSES = 100_000 * 200  # DFIRE, receptor ANM
+KERNEL_AUTO_ELEC_VDW_MIN_PAIR_POSES = 300_000 * 200   # DNA and PYDOCK
+
+
+def pick_energy_mode(params: BatchScoringParams, device, n_poses: int) -> str:
+    """Resolve energy_mode='auto' from the crossover map above: 'kernel'
+    where the receptor x ligand atom pairs times ``n_poses``, the poses of
+    one energy call, reach the threshold for the method and whether the
+    receptor has ANM, else 'dense'; 'dense' off a CUDA device, as JAX's
+    returns 'xla' off a TPU.  Never 'kernel_v1'.  A pure function of its
+    arguments: it reads the device's type and touches no CUDA state."""
+    if torch.device(device).type != "cuda":
+        return "dense"
+    pair_poses = params.rec_coords.shape[0] * params.lig_coords.shape[0] * n_poses
+    rec_anm = params.use_anm and params.rec_nmodes.shape[0] > 0
+    if params.method != "dfire":
+        threshold = KERNEL_AUTO_ELEC_VDW_MIN_PAIR_POSES
+    elif rec_anm:
+        threshold = KERNEL_AUTO_DFIRE_ANM_MIN_PAIR_POSES
+    else:
+        threshold = KERNEL_AUTO_MIN_PAIR_POSES
+    return "kernel" if pair_poses >= threshold else "dense"
+
+
+def resolve_energy_mode(params: BatchScoringParams, energy_mode: str, device,
+                        n_poses: int, who: str) -> str:
+    """``energy_mode`` checked, with 'auto' resolved by
+    :func:`pick_energy_mode` for ``n_poses`` poses a call, logged at INFO
+    for ``who`` (once a runner)."""
+    if energy_mode not in ENERGY_MODES:
+        raise ValueError(f"energy_mode must be one of {ENERGY_MODES}, got "
+                         f"{energy_mode!r}")
+    if energy_mode != "auto":
+        log.info("%s: energy mode %s", who, energy_mode)
+        return energy_mode
+    mode = pick_energy_mode(params, device, n_poses)
+    log.info("%s: energy mode %s (auto, %d poses a call)", who, mode, n_poses)
+    return mode
 
 
 def cuda_device(device, who: str) -> torch.device:
@@ -68,9 +175,10 @@ def make_energy(params: BatchScoringParams, energy_mode: str, device,
     bfloat16 where the mode reads them ('kernel_v1', 'dense' at float32);
     each value is upcast before it is added.  ``cull`` False gives the
     kernel modes every tile of every pose (``make_kernel_energy_fn``); the
-    dense mode has no cull and ignores it, as JAX's 'xla' mode does."""
-    if energy_mode not in ENERGY_MODES:
-        raise ValueError(f"energy_mode must be one of {ENERGY_MODES}, got "
+    dense mode has no cull and ignores it, as JAX's 'xla' mode does.
+    'auto' is resolved before, by :func:`resolve_energy_mode`."""
+    if energy_mode not in ENERGY_MODES[1:]:
+        raise ValueError(f"make_energy takes one of {ENERGY_MODES[1:]}, got "
                          f"{energy_mode!r}")
     if energy_mode == "dense":
         if dtype == torch.float32:
@@ -156,8 +264,10 @@ class GsoTorchRunner:
         device = cuda_device(device, "GsoTorchRunner")
         if rng_mode not in RNG_MODES:
             raise ValueError(f"rng_mode must be one of {RNG_MODES}, got {rng_mode!r}")
+        self.energy_mode = resolve_energy_mode(params, energy_mode, device,
+                                               positions.shape[0], "GsoTorchRunner")
         self.params, energy_fn = make_energy(
-            params, energy_mode, device, energy_dtype or dtype, energy_chunk,
+            params, self.energy_mode, device, energy_dtype or dtype, energy_chunk,
             dq_bf16, cull)
         self.energy_fn = mixed_precision_energy(energy_fn, dtype, energy_dtype)
         self.device = device

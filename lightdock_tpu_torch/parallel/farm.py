@@ -32,7 +32,7 @@ import torch
 
 from ..engine.gso import StepOutput, SwarmState, swarms_step
 from ..engine.params import BatchScoringParams
-from ..engine.runner import cuda_device, make_energy
+from ..engine.runner import cuda_device, make_energy, resolve_energy_mode
 from ..utils.output import read_state_sidecar
 from .mesh import make_mesh
 from .multihost import (barrier, stack_swarm_states, swarm_randoms,
@@ -41,14 +41,24 @@ from .multihost import (barrier, stack_swarm_states, swarm_randoms,
 log = logging.getLogger(__name__)
 
 
+def largest_block(n_swarms: int, mesh) -> int:
+    """The most swarms a rank of ``mesh`` runs (all of them without one):
+    every rank resolves 'auto' for the same poses a call, so all run one
+    mode."""
+    n_ranks = 1 if mesh is None else mesh.n_swarm
+    return -(-n_swarms // n_ranks)
+
+
 class SwarmFarmRunner:
     """Runs S swarms in lockstep on ``device``: parameters uploaded once,
     segments of steps, per-swarm snapshots with full-precision sidecars,
     resume.  Every energy mode of ``engine.runner.GsoTorchRunner`` is
-    supported ('auto' is 'kernel'); ``energy_chunk`` > 0 caps the poses of
-    one dense energy call, 0 scores all S x G at once (the kernel modes
-    always do); ``cull`` False turns the kernel modes' box cull off
-    (``engine.runner.make_energy``).
+    supported ('auto' is ``engine.runner.pick_energy_mode``'s mode for
+    the poses of one call, G times the largest rank's swarms;
+    ``energy_mode`` holds the mode it runs); ``energy_chunk`` > 0 caps the
+    poses of one dense energy call, 0 scores all S x G at once (the
+    kernel modes always do); ``cull`` False turns the kernel
+    modes' box cull off (``engine.runner.make_energy``).
 
     With a ``mesh`` (``parallel.mesh.make_mesh`` with one rank on the
     atoms axis) this rank runs and writes its own block of the swarms, on
@@ -80,8 +90,13 @@ class SwarmFarmRunner:
         self.output_root = output_root
         self.seed = seed
         self.dtype = dtype
+        self.energy_mode = resolve_energy_mode(
+            params, energy_mode, self.device,
+            largest_block(self.n_swarms, mesh) * positions_list[0].shape[0],
+            "SwarmFarmRunner")
         self.params, self.energy_fn = make_energy(
-            params, energy_mode, self.device, dtype, energy_chunk, dq_bf16, cull)
+            params, self.energy_mode, self.device, dtype, energy_chunk, dq_bf16,
+            cull)
         self.states = stack_swarm_states([positions_list[i] for i in self._block],
                                          use_anm, anm_rec, anm_lig, dtype,
                                          self.device)
@@ -221,11 +236,13 @@ def run_swarm_farm(params: BatchScoringParams,
     device=device)`` over the world (one process: one rank).
 
     ``n_atom_shards`` > 1 also splits the receptor atoms over the mesh's
-    atoms axis, as JAX's does: 'kernel' (or 'auto') runs
+    atoms axis, as JAX's does: 'kernel' runs
     ``sharded.run_multi_swarm_2d_kernel`` (K1, K2 or K3 on each rank's
-    receptor slice), 'dense' ``sharded.run_multi_swarm_2d``; 'kernel_v1'
-    raises.  That path, as JAX's, runs every step and then writes the
-    snapshots, with no resume and no metrics."""
+    receptor slice), 'dense' ``sharded.run_multi_swarm_2d``, 'auto'
+    whichever ``engine.runner.pick_energy_mode`` picks for the whole
+    receptor and the rank's poses (JAX's takes 'auto' as 'xla' there); 'kernel_v1' raises.
+    That path, as JAX's, runs every step and then writes the snapshots,
+    with no resume and no metrics."""
     if n_atom_shards > 1 and energy_mode not in ("auto", "kernel", "dense"):
         raise ValueError("atom sharding composes with the v2 kernels "
                          "(energy_mode='kernel') or the dense energy, not "
@@ -244,8 +261,11 @@ def run_swarm_farm(params: BatchScoringParams,
         randoms = torch.as_tensor(
             swarm_randoms(seed, steps, len(block), states.t.shape[1]),
             dtype=dtype, device=mesh.device)
-        run = (run_multi_swarm_2d_kernel if energy_mode in ("kernel", "auto")
-               else run_multi_swarm_2d)
+        mode = resolve_energy_mode(
+            params, energy_mode, mesh.device,
+            largest_block(len(positions_list), mesh) * states.t.shape[1],
+            "run_swarm_farm")
+        run = run_multi_swarm_2d_kernel if mode == "kernel" else run_multi_swarm_2d
         _, outs = run(mesh, params, states, randoms)
         write_swarm_outputs(outs, swarm_ids, use_anm, steps, output_root,
                             sidecars=True, mesh=mesh)

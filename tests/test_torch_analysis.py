@@ -186,7 +186,7 @@ def test_whole_flow(tmp_path, method, n_anm):
         shutil.copy(f, run / f.name)
     with _cwd(run), contextlib.redirect_stdout(io.StringIO()):
         assert cli.main([str(run / "setup.json"), str(run / "init/initial_positions_*.dat"),
-                         "10", method, "--platform", "cpu"]) == 0
+                         "10", method, "--platform", "cpu", "--energy-mode", "kernel"]) == 0
     roots = {name: tmp_path / name for name in ("port", "jax")}
     for root in roots.values():
         for s in range(3):

@@ -84,15 +84,29 @@ def test_cli_matches_jax_cli_text(complexes, method):
 
 
 def test_cli_energy_modes_agree(complexes):
-    """At float64 the kernel_v1 mode (the step tables) and JAX's 'xla' name
-    (the dense mode) render the kernel mode's text, which is JAX's."""
+    """At float64 the kernel modes (the v2 kernels' and the v1 step
+    tables' plain versions) render the text of the default mode ('auto',
+    the dense mode on the CPU), which is JAX's."""
     root, setup, positions, jax_work = complexes["dfire"]
-    for mode in ("kernel_v1", "xla"):
+    for mode in ("kernel", "kernel_v1"):
         work = _run(cli.main, root, f"torch_{mode}", [
             setup, positions[0], STEPS, "dfire", "--platform", "cpu",
             "--energy-mode", mode])
         for step in (1, 10):
             assert _text(work, step) == _text(jax_work, step), (mode, step)
+
+
+@pytest.mark.parametrize("method", ["dna", "pydock"])
+def test_cli_kernel_mode_matches_jax_cli_text(complexes, method):
+    """At float64 the v2 kernel mode (K3's plain version) renders the JAX
+    command line's text for DNA with 2 + 2 ANM modes and for PYDOCK, as
+    the default mode does (``test_cli_matches_jax_cli_text``)."""
+    root, setup, positions, jax_work = complexes[method]
+    work = _run(cli.main, root, "torch_kernel", [setup, positions[0], STEPS, method,
+                                                 "--platform", "cpu", "--energy-mode",
+                                                 "kernel"])
+    for step in (1, 10):
+        assert _text(work, step) == _text(jax_work, step), f"gso_{step}.out differs"
 
 
 def test_cli_metrics_match_jax_keys(complexes):

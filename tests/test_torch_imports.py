@@ -47,6 +47,7 @@ PORT_MODULES = [
     "lightdock_tpu_torch.simulation",
     "lightdock_tpu_torch.cli",
     "lightdock_tpu_torch.precision_fidelity",
+    "lightdock_tpu_torch.bench",
     "lightdock_tpu_torch.setup_sim",
     "lightdock_tpu_torch.cli_tools",
     "lightdock_tpu_torch.analysis",
@@ -79,9 +80,9 @@ def test_port_never_imports_jax():
     takes a step, a sharded kernel step on a one-process mesh, the P6
     probe, a command-line run on the CPU from the files of
     ``standin.write_complex`` (PDB files, setup.json, positions, ANM), the
-    precision tool with its hybrids on such files, and ``tools setup``
-    then ``analysis all`` on the CPU (the native reader and writer built
-    and used), no ``jax``, no
+    precision tool with its hybrids on such files, ``tools setup`` then
+    ``analysis all`` on the CPU (the native reader and writer built and
+    used), and the benchmark with its farm at a tiny size, no ``jax``, no
     ``lightdock_tpu`` or ``lightdock_tpu.*``, no ``__graft_entry__`` and
     no ``scripts`` is in ``sys.modules``; ``chip_smoke.py`` imports none
     of them."""
@@ -137,6 +138,12 @@ def test_port_never_imports_jax():
             "                                  os.path.join(run, 'setup.json'),\n"
             "                                  '--platform', 'cpu']) == 0\n"
             "    assert os.path.exists(os.path.join(run, 'top', 'top_1.pdb'))\n"
+            "from lightdock_tpu_torch import bench\n"
+            "bench.ATOMS_1PPE, bench.GLOWWORMS, bench.STEPS, bench.REPEATS = (8, 4), 2, 1, 1\n"
+            "bench.FARM_SWARMS, bench.FARM_STEPS = 2, 1\n"
+            "with contextlib.redirect_stdout(io.StringIO()), \\\n"
+            "        contextlib.redirect_stderr(io.StringIO()):\n"
+            "    assert bench.main(['--device', 'cpu']) == 0\n"
             f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,7 +1,8 @@
 """The port's host IO library (``csrc/io_native.cpp`` through
 ``lightdock_tpu_torch.utils.native``) against its plain versions and the
 JAX package's: the ``gso_N.out`` writer byte for byte against
-``format_gso_output`` (negative zeros, halves, NaN, ANM columns), the PDB
+``format_gso_output`` (negative zeros, halves, ANM columns) and against the
+JAX package's native writer (NaNs of either sign as well), the PDB
 reader against ``parse_pdb_plain`` and ``lightdock_tpu.utils.pdb``; and a
 build that cannot run raises instead of falling back."""
 
@@ -49,19 +50,69 @@ def test_writer_byte_identical(tmp_path, pose_dim):
     assert text == jout.format_gso_output(*cols)
 
 
+def _signed_nans():
+    """NaNs with the sign bit clear and set: the quiet NaN and its
+    negation, inf - inf (the sign bit set on x86) and a NaN with a payload
+    of either sign."""
+    payload = np.array([0x7FF8000000000123, 0xFFF8000000000123],
+                       dtype=np.uint64).view(np.float64)
+    with np.errstate(invalid="ignore"):
+        inf_minus_inf = np.array([np.inf]) - np.array([np.inf])
+    return np.concatenate([[np.nan, -np.nan], inf_minus_inf, payload])
+
+
+def _fields(line):
+    """A ``gso_N.out`` row's number fields: the pose's, then luciferin,
+    the neighbour count, vision and scoring."""
+    pose, rest = line[1:].split(")")
+    return pose.split(", ") + rest.split()[2:]
+
+
 def test_writer_edge_values(tmp_path):
-    values = _edge_values()
+    """The port's writer against the JAX package's native writer byte for
+    byte, NaNs of either sign in every column included (glibc writes
+    "-nan" where the sign bit is set); the rows without a NaN also against
+    the plain ``format_gso_output``, which writes "nan" for both."""
+    from lightdock_tpu.utils import native as jnative
+
+    values = np.concatenate([_edge_values(), _signed_nans()])
     g = values.size
     rng = np.random.RandomState(1)
     poses = np.stack([values, -values, values[::-1]], axis=1)
     nn = rng.randint(-5, 10 ** 6, g)
     cols = (poses, values[::-1].copy(), nn, values, -values)
-    native.write_gso(tmp_path / "edge.out", *cols)
+    assert jnative.write_gso(str(tmp_path / "jax.out"), *cols), \
+        "the JAX package's native writer did not run"
+    output.write_gso_output(tmp_path / "edge.out", *cols)
     text = (tmp_path / "edge.out").read_text()
-    expected = output.format_gso_output(*cols)
-    assert text == expected
-    assert "-0.0000000" in text and "nan" in text and "-nan" not in text
+    assert text == (tmp_path / "jax.out").read_text()
 
+    rows = text.splitlines()[1:]
+    table = np.column_stack([poses, cols[1], nn, cols[3], cols[4]])
+    nan = np.isnan(table)
+    for col in (0, 1, 2, 3, 5, 6):  # every pose component, luciferin, vision, scoring
+        signs = np.signbit(table[nan[:, col], col])
+        assert signs.any() and not signs.all()
+    for i, j in zip(*np.nonzero(nan)):
+        assert _fields(rows[i])[j] == ("-nan" if np.signbit(table[i, j]) else "nan")
+    clean = ~nan.any(axis=1)
+    plain = output.format_gso_output(*(c[clean] for c in cols)).splitlines()[1:]
+    assert [r for r, keep in zip(rows, clean) if keep] == plain
+    assert "-0.0000000" in text
+
+
+def test_reader_reads_signed_nan(tmp_path):
+    """A snapshot with "-nan" scores reads back as NaN through the port's
+    text reader (used by the text resume), as through the JAX package's."""
+    poses, luc, nn, vis, sco = _snapshot(7, 6, 7)
+    sco[[1, 4]] = _signed_nans()[[1, 2]]
+    path = tmp_path / "gso_10.out"
+    output.write_gso_output(path, poses, luc, nn, vis, sco)
+    assert path.read_text().count("-nan") == 2
+    ours, ref = output.read_gso_output(path), jout.read_gso_output(path)
+    assert np.isnan(ours[4][[1, 4]]).all() and not np.isnan(np.delete(ours[4], [1, 4])).any()
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a, b)
 
 def test_writer_float32_state(tmp_path):
     """The runner hands the writer float32 state cast to float64 and int32

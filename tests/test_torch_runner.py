@@ -240,12 +240,18 @@ def test_dense_runner_matches_jax_xla_text(tmp_path, method, num_anm):
 
 
 def test_runner_energy_modes(tmp_path):
-    """'auto' is 'kernel' (the v2 kernels); an unknown mode raises; the
-    bf16 step tables reach K4 and stay close to the f32 run."""
+    """'auto' is 'dense' off the card (``pick_energy_mode``, as JAX's is
+    'xla' off a TPU) while an explicit 'kernel' stays the v2 kernel; an
+    unknown mode raises; the bf16 step tables reach K4 and stay close to
+    the f32 run."""
     params, pos = _toy(17, dtype=np.float32, dfire_mode="steps")
     kw = dict(seed=5, use_anm=False, anm_rec=0, anm_lig=0, device="cpu")
     auto = GsoTorchRunner(from_reference(params), pos, energy_mode="auto", **kw)
-    assert auto.energy_fn.kernel.__name__ == "dfire_pairs"
+    assert auto.energy_mode == "dense"
+    assert getattr(auto.energy_fn, "kernel", None) is None
+    kernel = GsoTorchRunner(from_reference(params), pos, energy_mode="kernel", **kw)
+    assert kernel.energy_mode == "kernel"
+    assert kernel.energy_fn.kernel.__name__ == "dfire_pairs"
     with pytest.raises(ValueError, match="energy_mode"):
         GsoTorchRunner(from_reference(params), pos, energy_mode="xla", **kw)
     f32 = GsoTorchRunner(from_reference(params), pos, energy_mode="kernel_v1", **kw)

@@ -133,8 +133,9 @@ def runs(tmp_path_factory):
     setup, _ = standin.write_complex(root, "dfire", 60, 30, 10, n_swarms=3, seed=5)
     argv = [str(setup), str(root / "initial_positions_*.dat"), CLI_STEPS, "dfire",
             "--platform", "cpu"]
+    ours = argv + ["--energy-mode", "kernel"]  # the port's v2 kernels (plain versions)
     cli_work = _work(root, "ranks")
-    wait_cli = spawn_in_thread(cli_ranks, 2, argv + ["--metrics", str(cli_work / "m.jsonl")],
+    wait_cli = spawn_in_thread(cli_ranks, 2, ours + ["--metrics", str(cli_work / "m.jsonl")],
                                cli_work)
 
     ref = tmp_path_factory.mktemp("ref")
@@ -150,7 +151,7 @@ def runs(tmp_path_factory):
     with _cwd(jax_cli), contextlib.redirect_stdout(io.StringIO()):
         assert jax_main(argv) == 0
     with _cwd(one_cli), contextlib.redirect_stdout(io.StringIO()):
-        assert cli.main(argv) == 0
+        assert cli.main(ours) == 0
     wait_farm()
     wait_cli()
     return dict(farm=farm_out, ref=ref, cli=cli_work, jax_cli=jax_cli, one_cli=one_cli)
