@@ -9,7 +9,8 @@ process per source, all at once), then drives five paths and a farm, each
 on a stand-in complex from ``lightdock_tpu_torch.standin`` made from a seed,
 the command line on the files of such complexes, the sharded paths on
 ranks of ``torch.distributed``, the workflow from raw PDB files to
-ranked complexes, and the benchmark entry point with its crossover map:
+ranked complexes, the benchmark entry point with its crossover map, and
+the float64 host parity engine:
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, the kernel build times with ptxas' registers and spills (and
@@ -241,6 +242,15 @@ ranked complexes, and the benchmark entry point with its crossover map:
     each point's line and the table: the bench's pick is
     ``pick_energy_mode``'s and lost by no more than 1.2x there.  The whole
     map is ``bench --crossover``'s, on demand (``engine.runner``).
+27. runs the float64 host parity engine: ``HostScorer`` on the card
+    against the CPU on 8 poses of each method's stand-in (1ppe DFIRE, 1azp
+    DNA with 10 + 10 modes, 1azp PYDOCK) at rel 1e-12, then
+    ``lightdock-tpu-torch --engine host`` 10 steps on the 1ppe stand-in's
+    files (200 glowworms) on the card and with ``--platform cpu``: gso_1.out
+    text-identical, the final states (read from the engine each run built)
+    within 1e-9 and the neighbour counts equal, no pair kernel launched;
+    ms a step, and the energy's ms a step with the poses it scored, on
+    each device, and all 200 poses rescored on the warm card.
 
 Ranks that share one card time the sharded paths' correctness, not their
 scaling.
@@ -275,6 +285,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_POSES, STEPS, SEGMENT, SEED = 200, 100, 10, 324324
@@ -375,6 +386,13 @@ PROBE_REPLACES = {"P1": "scripts/exp_gather_kernel.py:85", "P2": "scripts/exp_ga
                   "P3": "scripts/exp_gather32.py:65", "P4": "scripts/exp_gather_forms.py:33",
                   "P5": "scripts/exp_bisect.py:30", "P6": "scripts/exp_probe_ops.py:30"}
 PROBE_PLAIN_CALLS = {"P1": 2, "P2": 2, "P3": 2}   # timed plain calls; 5 elsewhere
+# Phase 27: the host parity engine.  Its scorer's poses a method and their
+# tolerance (card against CPU, relative), the command line's steps and the
+# tolerance of the final states (card against CPU, absolute: the energies'
+# float64 sums run in another order on the card).
+HOST_SCORER_POSES, HOST_SCORER_RTOL = 8, 1e-12
+HOST_STEPS, HOST_STATE_ATOL = 10, 1e-9
+HOST_STATE = ("t", "q", "a_rec", "a_lig", "luciferin", "scoring", "vision")
 
 
 def fail(msg: str) -> None:
@@ -3159,6 +3177,145 @@ def bench_phase(card):
     return sites
 
 
+# -- phase 27: the float64 host parity engine ----------------------------------
+
+@contextlib.contextmanager
+def host_engine_probe():
+    """While open, ``GsoHostEngine.run`` records the engine it runs
+    (``engine``) and each step's seconds (``steps``), and its scoring each
+    call's (poses scored, seconds) (``energy``): the engine brings every
+    score back to the host, so a call's wall time holds its device work."""
+    import numpy as np
+
+    from lightdock_tpu_torch.engine.gso_host import GsoHostEngine
+
+    rec = types.SimpleNamespace(engine=None, steps=[], energy=[])
+    run, score = GsoHostEngine.run, GsoHostEngine._recompute_energies
+
+    def timed_score(self):
+        n = int((self.moved | (self.step == 0)).sum())
+        t0 = time.perf_counter()
+        score(self)
+        rec.energy.append((n, time.perf_counter() - t0))
+
+    def recorded_run(self, steps, on_step=None):
+        rec.engine = self
+        marks = [time.perf_counter()]
+
+        def step_done(engine, step):
+            marks.append(time.perf_counter())
+            if on_step is not None:
+                on_step(engine, step)
+
+        run(self, steps, step_done)
+        rec.steps = np.diff(marks)
+
+    GsoHostEngine.run, GsoHostEngine._recompute_energies = recorded_run, timed_score
+    try:
+        yield rec
+    finally:
+        GsoHostEngine.run, GsoHostEngine._recompute_energies = run, score
+
+
+def host_scorer_card_vs_cpu(card, work):
+    """Phase 27 (a): ``Simulation.host_scorer`` on the card against the CPU
+    on ``HOST_SCORER_POSES`` poses of each method's stand-in files."""
+    import numpy as np
+    import torch
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.simulation import load_simulation
+    from lightdock_tpu_torch.utils.positions import split_positions
+
+    for method, atoms, num_anm in (("dfire", DFIRE_ATOMS, 0), ("dna", DNA_ATOMS, DNA_ANM),
+                                   ("pydock", DNA_ATOMS, 0)):
+        root = work / f"scorer_{method}"
+        setup, (pos,) = standin.write_complex(root, method, *atoms, HOST_SCORER_POSES,
+                                              num_anm=num_anm, seed=SEED)
+        sim = load_simulation(setup, pos, method, anm_dir=root)
+        poses = list(zip(*split_positions(sim.positions, sim.use_anm, sim.setup.anm_rec,
+                                          sim.setup.anm_lig)))
+        scores, ms = {}, {}
+        for device in ("cuda", "cpu"):
+            scorer = sim.host_scorer(device)
+            scorer.energy(*poses[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores[device] = np.array([scorer.energy(*p) for p in poses])
+            ms[device] = (time.perf_counter() - t0) * 1e3 / len(poses)
+        rel = float((np.abs(scores["cuda"] - scores["cpu"]) / np.abs(scores["cpu"])).max())
+        say(f"phase 27: [{card}] HostScorer {method} ({atoms[0]} x {atoms[1]} atoms, "
+            f"{num_anm} + {num_anm} modes, restraints on both sides): card against CPU on "
+            f"{len(poses)} poses max rel diff {rel:.3e} (rtol {HOST_SCORER_RTOL:g}); "
+            f"{ms['cuda']:.3f} ms a pose on the card, {ms['cpu']:.3f} ms on the CPU")
+        check(bool(np.isfinite(scores["cpu"]).all()), f"phase 27: {method}: non-finite scores")
+        check(rel <= HOST_SCORER_RTOL,
+              f"phase 27: HostScorer {method}: the card differs from the CPU by {rel:.3e}")
+
+
+def host_engine_phase(card, counters):
+    """Phase 27: the float64 host parity engine's scorer, then its command
+    line on the card and on the CPU (see the module docstring)."""
+    import numpy as np
+
+    from lightdock_tpu_torch import standin
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        host_scorer_card_vs_cpu(card, work)
+        setup, (pos,) = standin.write_complex(work, "dfire", *DFIRE_ATOMS, N_POSES, seed=SEED)
+        label = (f"`lightdock-tpu-torch --engine host` 1ppe DFIRE ({DFIRE_ATOMS[0]} x "
+                 f"{DFIRE_ATOMS[1]} atoms, {N_POSES} glowworms, {HOST_STEPS} steps)")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            argv = [setup, pos, HOST_STEPS, "dfire", "--engine", "host",
+                    "--output-dir", work / f"swarm_{device}"]
+            with host_engine_probe() as probe:
+                launches, run_s, _ = cli_run(counters, work, argv + (
+                    ["--platform", "cpu"] if device == "cpu" else []))
+            runs[device] = probe
+            energy, later = probe.energy, probe.energy[1:]
+            where = "card" if device == "cuda" else "CPU"
+            say(f"phase 27: [{card}] {label} on the {where}: {run_s:.3f} s (parsing and "
+                f"model building included); {np.mean(probe.steps) * 1e3:.3f} ms a step "
+                f"(steps {', '.join(f'{x * 1e3:.1f}' for x in probe.steps)} ms); energy: "
+                f"step 1 {energy[0][1] * 1e3:.3f} ms for {energy[0][0]} poses, then "
+                f"{np.mean([x[1] for x in later]) * 1e3:.3f} ms a step for "
+                f"{np.mean([x[0] for x in later]):.1f} poses on average; kernel launches "
+                f"{launches}")
+            check(sum(launches.values()) == 0,
+                  f"phase 27: the host engine on the {where} launched {launches}")
+            check(probe.engine is not None and probe.engine.device.type == device,
+                  f"phase 27: the {where} run did not build a GsoHostEngine there")
+        card_run, cpu_run = runs["cuda"].engine, runs["cpu"].engine
+        same = {s: (work / "swarm_cuda" / f"gso_{s}.out").read_text()
+                == (work / "swarm_cpu" / f"gso_{s}.out").read_text() for s in (1, HOST_STEPS)}
+        diffs = {name: float(np.abs(getattr(card_run, name) - getattr(cpu_run, name)).max(
+            initial=0.0)) for name in HOST_STATE}
+        neighbours = bool(np.array_equal(card_run.num_neighbors, cpu_run.num_neighbors))
+        say(f"phase 27: {label}: card against CPU: text-identical {same}; final state "
+            f"max|diff| " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+            + f" (atol {HOST_STATE_ATOL:g}); neighbour counts equal {neighbours}")
+        check(same[1], "phase 27: the card's gso_1.out differs from the CPU's")
+        check(max(diffs.values()) <= HOST_STATE_ATOL and neighbours,
+              f"phase 27: the card's final state differs from the CPU's: {diffs}")
+        check(all(np.isfinite(getattr(card_run, k)).all() for k in HOST_STATE),
+              "phase 27: non-finite state on the card")
+        # Every pose rescored on a warm card, as at step 1: the run's first
+        # call also grew the allocator's pool.
+        card_run.moved[:] = True
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            card_run._recompute_energies()
+            warm.append(time.perf_counter() - t0)
+        say(f"phase 27: [{card}] {label}: all {N_POSES} poses rescored on the warm card, "
+            f"{card_run.energy_chunk} a call: {min(warm) * 1e3:.3f} ms (min of 3; "
+            f"{', '.join(f'{x * 1e3:.3f}' for x in warm)})")
+    say(f"phase 27: [{card}] done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
            rank_launches=None, mixed_launches=None, workflow_launches=None,
            bench_launches=None):
@@ -3353,6 +3510,9 @@ def main() -> int:
 
     # -- 26. the benchmark entry point and the crossover map ----------------------
     bench_sites = bench_phase(card)
+
+    # -- 27. the float64 host parity engine --------------------------------------
+    host_engine_phase(card, counters)
 
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),

@@ -33,8 +33,16 @@ CPU.  The flags are the JAX command line's, mapped so:
   native_stream``), deterministic but not JAX's.
 - ``--profile``: ``torch.profiler`` over the run, a Chrome trace
   ``torch_trace.json`` in the output directory.
-- ``--engine`` is not offered: the float64 host engine stays with
-  ``lightdock-tpu --engine host``.
+- ``--engine``: ``torch`` (the default; JAX's ``jax`` is taken as it)
+  runs ``engine.runner.GsoTorchRunner``; ``host`` runs the float64 host
+  parity engine (``engine.gso_host.GsoHostEngine``: the moves on the host
+  in the reference's order, the energies on the card, or on the CPU with
+  ``--platform cpu``).  The host engine refuses the flags it has no use
+  for, where JAX's ignores them: a glob or list of positions files,
+  ``--resume``, ``--metrics``, ``--profile``, ``--dq-bf16``,
+  ``--energy-chunk`` (it scores 32 poses a call), ``--jax-rng``,
+  ``--dtype float32``, a kernel ``--energy-mode`` and a
+  ``--steps-per-save`` other than 10 (it saves at step 1 and every 10th).
 """
 
 from __future__ import annotations
@@ -50,10 +58,21 @@ import time
 
 ENERGY_MODES = ("auto", "kernel", "kernel_v1", "dense")
 ENERGY_MODE_ALIASES = {"pallas": "kernel", "xla": "dense"}
+ENGINES = ("torch", "host")
+ENGINE_ALIASES = {"jax": "torch"}
 
 
 def _energy_mode(name: str) -> str:
     return ENERGY_MODE_ALIASES.get(name, name)
+
+
+def _engine(name: str) -> str:
+    return ENGINE_ALIASES.get(name, name)
+
+
+def _is_multi(positions: str) -> bool:
+    """A glob or a comma-separated list of positions files."""
+    return "," in positions or any(c in positions for c in "*?[")
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -65,6 +84,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     "comma-separated list of them (one farm of swarms)")
     ap.add_argument("steps", type=int, help="number of GSO steps")
     ap.add_argument("method", type=str.lower, choices=["dfire", "dna", "pydock"])
+    ap.add_argument("--engine", type=_engine, choices=ENGINES, default="torch",
+                    help="torch: the batched engine (default; JAX's jax is "
+                         "taken as it); host: the float64 host parity engine, "
+                         "the moves on the host in the reference's order")
     ap.add_argument("--platform", choices=["auto", "cuda", "cpu"], default="auto",
                     help="auto and cuda run on the CUDA card (an error "
                          "without one); cpu runs the kernels' plain versions")
@@ -143,15 +166,37 @@ def profiled(enabled: bool, device, out_dir, log):
     log.info("profiler trace written to %s", trace)
 
 
+def host_refusals(args) -> list:
+    """The flags of ``args`` that ``--engine host`` has no use for."""
+    refused = [(_is_multi(args.positions), "a glob or list of positions files"),
+               (args.resume is not None, "--resume"),
+               (args.metrics is not None, "--metrics"),
+               (args.profile, "--profile"),
+               (args.dq_bf16, "--dq-bf16"),
+               (args.energy_chunk is not None, "--energy-chunk"),
+               (args.jax_rng, "--jax-rng"),
+               (args.dtype == "float32", "--dtype float32"),
+               (args.energy_mode in ("kernel", "kernel_v1"),
+                f"--energy-mode {args.energy_mode}"),
+               (args.steps_per_save != 10, "--steps-per-save")]
+    return [flag for hit, flag in refused if hit]
+
+
 def main(argv=None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
     if args.r_tile is not None or args.l_tile is not None:
         parser.error("--r-tile/--l-tile are not taken: the card's kernel "
                      "tiles are fixed")
+    refused = host_refusals(args) if args.engine == "host" else []
+    if refused:
+        parser.error(f"--engine host does not take {', '.join(refused)}: it runs "
+                     "one swarm at float64 with the reference's stream, saving "
+                     "at step 1 and every 10th step")
     device_name = "cpu" if args.platform == "cpu" else "cuda"
     dtype_name = args.dtype or ("float64" if device_name == "cpu" else "float32")
-    if device_name == "cuda" and dtype_name == "float64" and args.energy_mode != "dense":
+    if (args.engine == "torch" and device_name == "cuda" and dtype_name == "float64"
+            and args.energy_mode != "dense"):
         parser.error(f"--dtype float64 on the card needs --energy-mode dense: "
                      f"the {args.energy_mode} mode's kernels take float32 only")
     logging.basicConfig(
@@ -168,8 +213,7 @@ def main(argv=None) -> int:
     # Multi-swarm mode: a glob or a comma-separated list of positions files
     # runs every swarm in one farm.
     multi = ([p for part in args.positions.split(",") for p in sorted(glob.glob(part))]
-             if ("," in args.positions or any(c in args.positions for c in "*?["))
-             else None)
+             if _is_multi(args.positions) else None)
     if multi:
         return run_multi(args, multi, log, device, dtype_name)
 
@@ -189,7 +233,10 @@ def main(argv=None) -> int:
     print(f"Creating GSO with {sim.positions.shape[0]} glowworms")
 
     start = time.time()
-    run_torch(sim, args, outdir, log, device, dtype_name)
+    if args.engine == "host":
+        run_host(sim, args, outdir, device)
+    else:
+        run_torch(sim, args, outdir, log, device, dtype_name)
     print(f"Done ({args.steps} steps) in {time.time() - start:.2f}s")
     return 0
 
@@ -271,6 +318,17 @@ def _run_multi(args, positions_files, log, mesh, dtype_name) -> int:
     if summary["poses_per_s"]:
         print(f"Throughput: {summary['poses_per_s']} poses/s")
     return 0
+
+
+def run_host(sim, args, outdir, device) -> None:
+    """One swarm through ``engine.gso_host.GsoHostEngine``."""
+    from .engine.gso_host import GsoHostEngine
+
+    engine = GsoHostEngine(sim.batch_params(), sim.positions, sim.seed,
+                           sim.use_anm, sim.setup.anm_rec, sim.setup.anm_lig,
+                           output_directory=str(outdir), device=device)
+    print(f"Starting optimization ({args.steps} steps)")
+    engine.run(args.steps)
 
 
 def run_torch(sim, args, outdir, log, device, dtype_name) -> None:

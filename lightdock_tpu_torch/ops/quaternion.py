@@ -4,10 +4,16 @@ Port of ``lightdock_tpu/ops/quaternion.py``: the same arithmetic, in the
 same order, written natively for torch (the reference's ``xp``-generic
 source passes Python scalars to ``xp.maximum``/``xp.where``, which torch
 does not take).  Every function broadcasts over leading batch axes.
+
+:func:`slerp_host` is a NumPy copy of the original ``slerp`` for the host
+engine's moves (``engine.gso_host``): torch's CPU ``arccos`` and ``sin``
+part from NumPy's in the last ulp on some quaternion pairs, and the host
+engine must move its glowworms bit for bit as the original does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import LINEAR_THRESHOLD
@@ -16,6 +22,29 @@ from ..constants import LINEAR_THRESHOLD
 def qnormalize(q: torch.Tensor) -> torch.Tensor:
     n = torch.sqrt((q * q).sum(dim=-1))
     return q / n[..., None]
+
+
+def qmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternion tensors (..., 4)."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([aw * bw - ax * bx - ay * by - az * bz,
+                        aw * bx + ax * bw + ay * bz - az * by,
+                        aw * by - ax * bz + ay * bw + az * bx,
+                        aw * bz + ax * by - ay * bx + az * bw], dim=-1)
+
+
+def qinverse(q: torch.Tensor) -> torch.Tensor:
+    conj = torch.stack([q[..., 0], -q[..., 1], -q[..., 2], -q[..., 3]], dim=-1)
+    return conj / (q * q).sum(dim=-1)[..., None]
+
+
+def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Vectors ``v`` (..., 3) rotated by ``q`` (..., 4) in the reference's
+    double Hamilton product form ``q * (0, v) * q^-1``, the division by
+    |q|^2 included (the host scorer's transform)."""
+    vq = torch.cat([torch.zeros_like(v[..., :1]), v], dim=-1)
+    return qmul(qmul(q, vq), qinverse(q))[..., 1:]
 
 
 def rotation_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -62,3 +91,31 @@ def slerp(q1: torch.Tensor, q2: torch.Tensor, t: float) -> torch.Tensor:
     c2 = torch.sin(t * omega) / so_safe
     sph = q1 * c1[..., None] + q2 * c2[..., None]
     return torch.where(linear[..., None], lin, sph)
+
+
+def qnormalize_host(q: np.ndarray) -> np.ndarray:
+    n = np.sqrt((q * q).sum(axis=-1))
+    return q / n[..., None]
+
+
+def slerp_host(q1: np.ndarray, q2: np.ndarray, t: float) -> np.ndarray:
+    """NumPy copy of the original ``slerp`` (see the module docstring),
+    the same operations in the same order."""
+    q1 = qnormalize_host(q1)
+    q2 = qnormalize_host(q2)
+    d = (q1 * q2).sum(axis=-1)
+    flip = d < 0.0
+    q1 = np.where(flip[..., None], -q1, q1)
+    d = np.where(flip, -d, d)
+
+    lin = qnormalize_host(q1 + (q2 - q1) * t)
+
+    dc = np.maximum(np.minimum(d, 1.0), -1.0)
+    omega = np.arccos(dc)
+    so = np.sin(omega)
+    # Guard the (unused) spherical values in the linear regime against 0/0.
+    so_safe = np.where(d > LINEAR_THRESHOLD, 1.0, so)
+    c1 = np.sin((1.0 - t) * omega) / so_safe
+    c2 = np.sin(t * omega) / so_safe
+    sph = q1 * c1[..., None] + q2 * c2[..., None]
+    return np.where((d > LINEAR_THRESHOLD)[..., None], lin, sph)

@@ -1,11 +1,11 @@
 """Simulation assembly: files -> models -> scoring parameters.
 
-Copy of ``lightdock_tpu/simulation.py`` without ``Simulation.host_scorer``
-(the f64 host engine is not ported).  It follows the reference binary's
-load path (reference src/bin/lightdock-rust.rs:158-332): setup.json beside
-the PDB files, the ``lightdock_`` prefix before the structure names, the
-ANM ``.npy`` files read from the working directory with their size checks,
-restraints split into active and passive lists.
+Copy of ``lightdock_tpu/simulation.py``; ``Simulation.host_scorer`` takes
+the device of the port's float64 scoring oracle.  It follows the reference
+binary's load path (reference src/bin/lightdock-rust.rs:158-332):
+setup.json beside the PDB files, the ``lightdock_`` prefix before the
+structure names, the ANM ``.npy`` files read from the working directory
+with their size checks, restraints split into active and passive lists.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from . import constants as C
+from .engine.energy_host import HostScorer
 from .engine.params import BatchScoringParams, build_batch_params
 from .scoring.models import DockingModel, build_model
 from .utils.pdb import parse_pdb
@@ -41,6 +42,12 @@ class Simulation:
     @property
     def use_anm(self) -> bool:
         return self.setup.use_anm
+
+    def host_scorer(self, device="cuda") -> HostScorer:
+        """The single-pose float64 oracle (``engine.energy_host``) on
+        ``device``."""
+        return HostScorer(self.method, self.receptor, self.ligand, self.use_anm,
+                          device=device)
 
     def batch_params(self, dtype=np.float64) -> BatchScoringParams:
         """The scoring parameters (``engine.params.build_batch_params``);

@@ -27,6 +27,16 @@ N_REC, N_LIG, G, STEPS, NUM_ANM = 60, 30, 10, "10", 2
 METHODS = {"dfire": 0, "dna": NUM_ANM, "pydock": 0}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @contextlib.contextmanager
 def _cwd(path):
     old = os.getcwd()

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (DFIRE K1, K2 and K4, elec/vdw K3 and K5,
 and the three probe templates of P1-P6) against their plain versions, and
-the energy path on the card against the CPU.
+the energy path and the float64 host engine on the card against the CPU.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports neither JAX nor
 the JAX package (the systems come from ``lightdock_tpu_torch.standin``),
@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     kernel_params, make_kernel_energy_fn)
 from lightdock_tpu_torch import probes  # noqa: E402
+from lightdock_tpu_torch.engine.gso_host import GsoHostEngine  # noqa: E402
 from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4  # noqa: E402
@@ -24,6 +25,7 @@ from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs_v1 as k5  # noqa: E402
 from lightdock_tpu_torch.ops import probes as ops_probes  # noqa: E402
 from lightdock_tpu_torch import standin  # noqa: E402
+from lightdock_tpu_torch.simulation import load_simulation  # noqa: E402
 from lightdock_tpu_torch.standin import toy_system  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -587,3 +589,28 @@ def test_elec_vdw_kernels_other_tiles(cuda, r_tile, l_tile, num_anm):
         wide = args[:8] + (bits(32, 256, chunks), bits(32, 256, g))
         with pytest.raises(ValueError, match="unsupported tile"):
             kernel(*wide, r_tile=32, l_tile=256)
+
+
+def test_host_engine_on_card_matches_cpu(cuda, tmp_path):
+    """``GsoHostEngine`` with its energies on the card: gso_1.out the CPU
+    run's text, and the state after 10 steps within 1e-9 of the CPU's (the
+    float64 sums run in another order there), neighbour counts equal."""
+    setup, positions = standin.write_complex(tmp_path, "dna", 200, 80, 30, num_anm=2,
+                                             seed=7)
+    sim = load_simulation(setup, positions[0], "dna", anm_dir=tmp_path)
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        out = tmp_path / device.type
+        out.mkdir()
+        engine = GsoHostEngine(sim.batch_params(), sim.positions, sim.seed, sim.use_anm,
+                               sim.setup.anm_rec, sim.setup.anm_lig,
+                               output_directory=str(out), device=device)
+        engine.run(10)
+        runs[device.type] = engine
+    assert (tmp_path / "cuda" / "gso_1.out").read_text() == \
+        (tmp_path / "cpu" / "gso_1.out").read_text()
+    card, cpu = runs["cuda"], runs["cpu"]
+    for name in ("t", "q", "a_rec", "a_lig", "luciferin", "scoring", "vision"):
+        np.testing.assert_allclose(getattr(card, name), getattr(cpu, name), rtol=0,
+                                   atol=1e-9, err_msg=name)
+    assert np.array_equal(card.num_neighbors, cpu.num_neighbors)

@@ -39,6 +39,16 @@ from lightdock_tpu_torch.scoring import tables as score_tables  # noqa: E402
 ULPS = 64
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _live_thresholds():
     thr = dfire_bin_thresholds(score_tables.dfire_tables()["dist_to_bins"])
     return tuple(float(thr[k]) for k in dfire_live_channels(thr))

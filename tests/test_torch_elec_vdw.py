@@ -43,6 +43,16 @@ TOL = dict(rtol=5e-5, atol=5e-5)
 F64 = dict(rtol=1e-10, atol=1e-10)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _system(method="dna", num_anm=2, dtype=np.float32, g=37, n_rec=300,
             n_lig=170, seed=3, spread=40, rec_anm=True):
     """Random complex with restraints and a membrane on the receptor, so

@@ -40,6 +40,16 @@ R_TILE, L_TILE = 32, 128
 ULPS = 2
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _moved(inv, shift, seed):
     """``inv`` with every finite nonzero entry moved by ``shift`` ulps
     ("+", "-", or "seeded": each entry up or down by a seeded sign)."""

@@ -38,6 +38,16 @@ from lightdock_tpu_torch.ops.tiling import spatial_sort_params  # noqa: E402
 TOL = dict(rtol=5e-5, atol=5e-5)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _system(dtype=np.float32, dfire_mode="steps", restraints=True, g=37,
             n_rec=300, n_lig=170, seed=3, spread=40):
     rng = np.random.RandomState(seed)

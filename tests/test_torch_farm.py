@@ -25,6 +25,16 @@ G, NUM_ANM = 16, 2
 ANM = dict(use_anm=True, anm_rec=NUM_ANM, anm_lig=NUM_ANM)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _system(method="dfire", n_rec=40, n_lig=25, seed=7, n_swarms=3):
     """tests/test_farm.py::_system, draw for draw."""
     rng = np.random.RandomState(seed)

@@ -9,13 +9,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 import __graft_entry__  # noqa: E402
 from lightdock_tpu import analysis as janalysis  # noqa: E402
 from lightdock_tpu import setup_sim as jsetup  # noqa: E402
 from lightdock_tpu import constants as jc  # noqa: E402
 from lightdock_tpu.engine import energy_batch as eb  # noqa: E402
+from lightdock_tpu.ops import quaternion as jqt  # noqa: E402
 from lightdock_tpu.scoring import models as jmodels  # noqa: E402
 from lightdock_tpu.scoring import potentials as jpot  # noqa: E402
 from lightdock_tpu.scoring import tables as jtables  # noqa: E402
@@ -29,6 +30,7 @@ from lightdock_tpu_torch import setup_sim as tsetup  # noqa: E402
 from lightdock_tpu_torch import standin  # noqa: E402
 from lightdock_tpu_torch.engine import params as tparams  # noqa: E402
 from lightdock_tpu_torch.engine.energy_kernel import kernel_params  # noqa: E402
+from lightdock_tpu_torch.ops import quaternion as tqt  # noqa: E402
 from lightdock_tpu_torch.scoring import models as tmodels  # noqa: E402
 from lightdock_tpu_torch.scoring import potentials as tpot  # noqa: E402
 from lightdock_tpu_torch.scoring import tables as ttables  # noqa: E402
@@ -39,6 +41,16 @@ from lightdock_tpu_torch.utils import positions as tpos  # noqa: E402
 from lightdock_tpu_torch.utils import rng as trng  # noqa: E402
 
 FIELDS = [f.name for f in dataclasses.fields(eb.BatchScoringParams)]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _assert_params_equal(ours, ref, skip=()):
@@ -216,6 +228,21 @@ def test_clusters_match(cutoff):
     assert tclusters.DEFAULT_RMSD_CUTOFF == janalysis.DEFAULT_RMSD_CUTOFF
     assert [dataclasses.astuple(c) for c in ours] == [dataclasses.astuple(c) for c in ref]
     assert any(len(c.members) > 1 for c in ours) and len(ours) > 1
+
+
+@pytest.mark.parametrize("t", [tc.DEFAULT_ROTATION_STEP, 0.5])
+def test_slerp_host_matches(t):
+    """``ops.quaternion.slerp_host`` equals the original NumPy ``slerp``
+    bit for bit, one quaternion a call as the host engine calls it and in
+    a batch: near-parallel pairs (the linear branch), antiparallel ones
+    (the flip) and the rest (the spherical branch)."""
+    rng = np.random.RandomState(9)
+    q1 = rng.standard_normal((600, 4)) * 1.7
+    q2 = q1 + rng.standard_normal((600, 4)) * np.repeat([1e-4, 1e-2, 1.0], 200)[:, None]
+    q2[::7] = -q2[::7]
+    for a, b in zip(q1, q2):
+        np.testing.assert_array_equal(tqt.slerp_host(a, b, t), jqt.slerp(a, b, t))
+    np.testing.assert_array_equal(tqt.slerp_host(q1, q2, t), jqt.slerp(q1, q2, t))
 
 
 def test_reference_rng_matches():

@@ -40,6 +40,8 @@ PORT_MODULES = [
     "lightdock_tpu_torch.ops.probes",
     "lightdock_tpu_torch.engine.params",
     "lightdock_tpu_torch.engine.energy_dense",
+    "lightdock_tpu_torch.engine.energy_host",
+    "lightdock_tpu_torch.engine.gso_host",
     "lightdock_tpu_torch.engine.energy_kernel",
     "lightdock_tpu_torch.engine.gso",
     "lightdock_tpu_torch.engine.runner",
@@ -79,13 +81,13 @@ def test_port_never_imports_jax():
     kernel energy path of each generation on them, a two-swarm farm that
     takes a step, a sharded kernel step on a one-process mesh, the P6
     probe, a command-line run on the CPU from the files of
-    ``standin.write_complex`` (PDB files, setup.json, positions, ANM), the
-    precision tool with its hybrids on such files, ``tools setup`` then
-    ``analysis all`` on the CPU (the native reader and writer built and
-    used), and the benchmark with its farm at a tiny size, no ``jax``, no
-    ``lightdock_tpu`` or ``lightdock_tpu.*``, no ``__graft_entry__`` and
-    no ``scripts`` is in ``sys.modules``; ``chip_smoke.py`` imports none
-    of them."""
+    ``standin.write_complex`` (PDB files, setup.json, positions, ANM) with
+    each engine, the precision tool with its hybrids on such files,
+    ``tools setup`` then ``analysis all`` on the CPU (the native reader and
+    writer built and used), and the benchmark with its farm at a tiny
+    size, no ``jax``, no ``lightdock_tpu`` or ``lightdock_tpu.*``, no
+    ``__graft_entry__`` and no ``scripts`` is in ``sys.modules``;
+    ``chip_smoke.py`` imports none of them."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -118,6 +120,12 @@ def test_port_never_imports_jax():
             "        assert cli.main([str(setup), str(pos[0]), '2', 'dna', '--platform', 'cpu',\n"
             "                         '--anm-dir', work, '--output-dir', out]) == 0\n"
             "    assert os.path.exists(os.path.join(out, 'gso_1.out'))\n"
+            "    host = os.path.join(work, 'swarm_host')\n"
+            "    with contextlib.redirect_stdout(io.StringIO()):\n"
+            "        assert cli.main([str(setup), str(pos[0]), '1', 'dna', '--platform', 'cpu',\n"
+            "                         '--engine', 'host', '--anm-dir', work,\n"
+            "                         '--output-dir', host]) == 0\n"
+            "    assert os.path.exists(os.path.join(host, 'gso_1.out'))\n"
             "    from lightdock_tpu_torch import precision_fidelity as pf\n"
             "    pf.STANDINS = {'1ppe': (12, 8, 3, 0), '1azp': (12, 8, 3, 1)}\n"
             "    with contextlib.redirect_stderr(io.StringIO()):\n"
@@ -147,7 +155,8 @@ def test_port_never_imports_jax():
             f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "print(len(bad), bad[:5])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("0 []"), proc.stdout
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
@@ -168,7 +177,8 @@ def test_chip_smoke_fails_without_gpu_or_checkout(where, tmp_path):
         script = tmp_path / script.name
     proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
                           capture_output=True, text=True, timeout=120,
-                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                               "OMP_NUM_THREADS": "1"})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
     assert "FAIL" in proc.stderr

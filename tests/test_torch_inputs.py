@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from lightdock_tpu import simulation as jsim  # noqa: E402
 from lightdock_tpu.scoring import models as jmodels  # noqa: E402
@@ -30,6 +30,16 @@ from lightdock_tpu_torch.utils import output as tout  # noqa: E402
 from lightdock_tpu_torch.utils import pdb as tpdb  # noqa: E402
 from lightdock_tpu_torch.utils import positions as tpos  # noqa: E402
 from lightdock_tpu_torch.utils import setupfile as tsetup  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def atom(serial, name, res, chain, resseq, icode=" ", xyz=(0.0, 0.0, 0.0),

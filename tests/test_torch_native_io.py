@@ -18,6 +18,16 @@ from lightdock_tpu_torch.ops import _build  # noqa: E402
 from lightdock_tpu_torch.utils import native, output, pdb  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _snapshot(seed, g, d):
     rng = np.random.RandomState(seed)
     poses = rng.standard_normal((g, d)) * 10.0 ** rng.uniform(-9, 3, (g, d))

@@ -49,6 +49,16 @@ TOL = {"dfire": dict(rtol=5e-6, atol=0.0), "dna": dict(rtol=5e-5, atol=5e-5)}
 POSE_ATOL = 1e-9
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _toy(seed, n_rec=40, n_lig=26, g=24, method="dfire", num_anm=0,
          dfire_mode="auto"):
     """(params at float64, positions (G, 7 + 2 num_anm)): a small complex

@@ -61,6 +61,16 @@ NAMES = {
 CASES = [(p, n) for p in sorted(NAMES) for n in NAMES[p]]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _quiet_scripts(mp):
     """Patches, for a MonkeyPatch context, what a script changes at import:
     its kill alarm and its insert into ``sys.path``."""

@@ -10,6 +10,16 @@ from lightdock_tpu.ops import quaternion as ref  # noqa: E402
 from lightdock_tpu_torch.ops import quaternion as qt  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _quats(n, seed):
     q = np.random.RandomState(seed).standard_normal((n, 4)) * 1.7
     return q
@@ -42,3 +52,16 @@ def test_slerp_matches(t):
     np.testing.assert_allclose(
         qt.slerp(torch.as_tensor(q1), torch.as_tensor(q2), t).numpy(),
         ref.slerp(q1, q2, t, np), rtol=0, atol=1e-12)
+
+
+def test_rotate_matches():
+    """The Hamilton product form ``q v q^-1``, |q| != 1 included, of
+    single quaternions (the host scorer's) and a batch."""
+    q = _quats(8, 4)
+    v = np.random.RandomState(5).standard_normal((8, 30, 3)) * 20
+    for a, b in zip(q, v):
+        np.testing.assert_allclose(qt.rotate(torch.as_tensor(a), torch.as_tensor(b)).numpy(),
+                                   ref.rotate(a, b, np), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(
+        qt.rotate(torch.as_tensor(q[:, None]), torch.as_tensor(v)).numpy(),
+        ref.rotate(q[:, None], v, np), rtol=0, atol=1e-12)

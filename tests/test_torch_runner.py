@@ -17,6 +17,16 @@ from lightdock_tpu_torch.engine.params import from_reference  # noqa: E402
 from lightdock_tpu_torch.engine.runner import GsoTorchRunner  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _toy(seed, n_rec=40, n_lig=26, g=24, dtype=np.float64, method="dfire",
          num_anm=0, dfire_mode="auto"):
     """A small system with restraints on both sides, so the interface

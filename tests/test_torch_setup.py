@@ -37,6 +37,16 @@ EXTRA = (
     "END\n")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def raw(tmp_path_factory):
     """Raw receptor and ligand PDB files from ``standin.write_complex``,

@@ -16,6 +16,16 @@ from lightdock_tpu_torch.engine.params import from_reference  # noqa: E402
 from lightdock_tpu_torch.ops import cull, tiling  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("tile", [32, (32, 8), (128, 32), 64])
 def test_rcb_order_matches(tile):
     coords = np.random.RandomState(7).uniform(-50, 50, (333, 3))

@@ -39,6 +39,16 @@ TOL = {"dfire": (5e-6, 0.0), "dna": (5e-5, 5e-5), "pydock": (5e-5, 5e-5)}
 R_TILE, L_TILE = 32, 128
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _system(method, n_rec=300, n_lig=170, num_anm=2, seed=3, spread=40,
             restraints=True, g=37):
     """tests/test_pallas.py::_system: the same draws, f32, the step

@@ -43,6 +43,16 @@ TOL = dict(rtol=5e-5, atol=5e-5)
 R_TILE, L_TILE = 32, 128
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the tests' tensors are small, and several test
+    processes with a thread pool each oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _system(num_anm, g=37, n_rec=300, n_lig=170, seed=3, spread=40):
     """``tests/test_pallas.py::_system`` for DFIRE: restraints and a
     membrane on the receptor, ``num_anm`` modes on each side."""
