@@ -150,7 +150,7 @@ the float64 host parity engine:
     positions file of 200 glowworms): ``setup.json initial_positions_0.dat
     100 dfire --metrics FILE``: exit 0, 100 K1 launches and no other
     kernel's, the snapshots with their sidecars, finite scores, the metrics'
-    segments and summary; the step-1 scores against a ``GsoTorchRunner``
+    segments, each followed by its trace line, and summary; the step-1 scores against a ``GsoTorchRunner``
     built from ``load_simulation`` on the same files (5e-5), whether
     gso_100.out is byte-identical to the runner's; the CLI's poses/s (its
     ``--metrics`` summary) beside the runner's (min of 5, reset before
@@ -1929,7 +1929,8 @@ def cli_path_phase(card, counters):
         scores = [sidecar_scores(swarm, s) for s in (1, STEPS)]
         check(all(np.isfinite(x).all() and x.shape == (N_POSES,) for x in scores),
               f"{label}: non-finite or misshapen scores")
-        check([e["event"] for e in events] == ["segment"] * (STEPS // SEGMENT) + ["summary"]
+        check([e["event"] for e in events]
+              == ["segment", "trace"] * (STEPS // SEGMENT) + ["summary"]
               and summary["total_poses_scored"] == N_POSES * STEPS
               and summary["backend"] == "cuda" and summary["poses_per_s"] > 0,
               f"{label}: metrics events {[e['event'] for e in events]}, summary {summary}")

@@ -32,7 +32,19 @@ CPU.  The flags are the JAX command line's, mapped so:
 - ``--jax-rng``: the runner's native stream (``engine.runner.
   native_stream``), deterministic but not JAX's.
 - ``--profile``: ``torch.profiler`` over the run, a Chrome trace
-  ``torch_trace.json`` in the output directory.
+  ``torch_trace.json`` in the output directory.  Each of the program's
+  spans (below) is also a ``record_function`` range of the same name
+  there.
+- ``--metrics FILE``: JSON lines: one ``segment`` event a segment and a
+  ``summary``, with the JAX command line's keys, and after each segment a
+  ``trace`` event holding the program's spans since the last one, as
+  ``[name, start_ns, end_ns]`` on ``time.perf_counter_ns``, and its
+  counter (``utils.metrics``).  The spans: ``read_inputs`` (from the
+  call's start to the runner's construction), ``runner_setup`` (to the
+  first step), ``energy`` and ``move`` (each step), ``write_text`` and
+  ``write_sidecar`` (each snapshot); the counter ``poses_scored``, the
+  poses the energy calls were asked to score.  Without ``--metrics`` the
+  program records nothing.
 - ``--engine``: ``torch`` (the default; JAX's ``jax`` is taken as it)
   runs ``engine.runner.GsoTorchRunner``; ``host`` runs the float64 host
   parity engine (``engine.gso_host.GsoHostEngine``: the moves on the host
@@ -122,9 +134,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="draw a native torch stream on the device instead of "
                          "the bit-exact reference (rand 0.7) stream")
     ap.add_argument("--profile", action="store_true",
-                    help="capture a torch.profiler trace of the run")
+                    help="capture a torch.profiler trace of the run, the "
+                         "program's spans as record_function ranges of the "
+                         "same names")
     ap.add_argument("--metrics", metavar="FILE", default=None,
-                    help="write JSON-lines run metrics to FILE")
+                    help="write JSON-lines run metrics to FILE: segment and "
+                         "summary events, and trace events holding the "
+                         "program's spans on time.perf_counter_ns and its "
+                         "poses_scored counter")
     ap.add_argument("--resume", metavar="GSO_OUT",
                     help="resume from a previous gso_N.out snapshot; in "
                          "multi-swarm mode pass 'auto' to continue every "
@@ -204,6 +221,21 @@ def main(argv=None) -> int:
         format="%(levelname)s %(name)s: %(message)s")
     log = logging.getLogger("lightdock_tpu_torch")
 
+    from .utils.metrics import begin, record
+
+    # --metrics keeps the program's spans and counter for its file;
+    # --profile alone only names its ranges.
+    tracing = (record(store=args.metrics is not None, profile=args.profile)
+               if args.metrics or args.profile else contextlib.nullcontext())
+    with tracing:
+        begin("read_inputs")
+        return run(args, log, device_name, dtype_name)
+
+
+def run(args, log, device_name, dtype_name) -> int:
+    """The command after its flags are checked: one swarm through
+    :func:`run_torch` or :func:`run_host`, or the farm through
+    :func:`run_multi`."""
     from .engine.runner import cuda_device
     from .simulation import load_simulation
     from .utils.positions import parse_swarm_id
@@ -246,7 +278,8 @@ def run_multi(args, positions_files, log, device, dtype_name) -> int:
     the ranks of torchrun's world where there is one
     (``parallel.multihost.maybe_initialize_distributed``; ``--platform
     cpu`` takes the gloo backend).  Only rank 0 writes ``--metrics``,
-    counting every rank's swarms, and profiles with ``--profile``."""
+    counting every rank's swarms in its segments (its ``trace`` lines hold
+    rank 0's own spans and counter), and profiles with ``--profile``."""
     import torch.distributed as dist
 
     from .parallel.mesh import make_mesh
@@ -269,7 +302,7 @@ def _run_multi(args, positions_files, log, mesh, dtype_name) -> int:
 
     from .parallel.farm import run_swarm_farm
     from .simulation import load_simulation
-    from .utils.metrics import RunMetrics
+    from .utils.metrics import RunMetrics, begin, end
     from .utils.positions import parse_positions, parse_swarm_id
 
     device = mesh.device
@@ -291,6 +324,8 @@ def _run_multi(args, positions_files, log, mesh, dtype_name) -> int:
     chunk = (args.energy_chunk if args.energy_chunk is not None
              else pick_energy_chunk(n_pairs, g * len(positions_list),
                                     np.dtype(dtype_name).itemsize))
+    end("read_inputs")
+    begin("runner_setup")  # ended by SwarmFarmRunner.run_segmented's first step
     # Every rank keeps metrics (the farm waits for all at a segment's end);
     # rank 0 writes them.
     metrics = RunMetrics(args.metrics if mesh.rank == 0 else None, context={
@@ -337,7 +372,7 @@ def run_torch(sim, args, outdir, log, device, dtype_name) -> None:
     import torch
 
     from .engine.runner import GsoTorchRunner
-    from .utils.metrics import RunMetrics
+    from .utils.metrics import RunMetrics, begin, end
 
     dtype = torch.float64 if dtype_name == "float64" else torch.float32
     n_pairs = sim.receptor.num_atoms * sim.ligand.num_atoms
@@ -347,6 +382,8 @@ def run_torch(sim, args, outdir, log, device, dtype_name) -> None:
     log.info("backend=%s dtype=%s energy_chunk=%s pairs=%d",
              device.type, dtype_name, chunk, n_pairs)
 
+    end("read_inputs")
+    begin("runner_setup")  # ended by GsoTorchRunner.run_segmented's first step
     runner = GsoTorchRunner(
         sim.batch_params(dtype=np.dtype(dtype_name)), sim.positions, sim.seed,
         sim.use_anm, sim.setup.anm_rec, sim.setup.anm_lig,

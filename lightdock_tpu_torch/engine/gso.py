@@ -23,6 +23,7 @@ import torch
 
 from .. import constants as C
 from ..ops import quaternion as qt
+from ..utils import metrics
 from ..utils.positions import split_positions
 
 
@@ -77,12 +78,18 @@ def init_state(positions: np.ndarray, use_anm: bool, anm_rec: int,
 def gso_step(params, state: SwarmState, randoms: torch.Tensor, energy_fn):
     """One GSO iteration; returns (new_state, StepOutput).  ``energy_fn``
     has the signature of ``energy_kernel.make_kernel_energy_fn``'s result
-    (the dense ``energy_dense.batch_energy`` also fits)."""
+    (the dense ``energy_dense.batch_energy`` also fits).  Spans ``energy``
+    and ``move``; the counter ``poses_scored`` adds the poses the energy
+    is asked to score, as the mask itself (``utils.metrics.count``)."""
     # 1. Scoring: unmoved glowworms keep their score.
-    moved_prev = state.num_neighbors > 0
-    scoring = energy_fn(params, state.t, state.q, state.a_rec, state.a_lig,
-                        moved=moved_prev, prev_scoring=state.scoring)
-    return gso_move(params, state, scoring.to(state.t.dtype), randoms)
+    with metrics.span("energy"):
+        moved_prev = state.num_neighbors > 0
+        if metrics.recording():
+            metrics.count("poses_scored", moved_prev)
+        scoring = energy_fn(params, state.t, state.q, state.a_rec, state.a_lig,
+                            moved=moved_prev, prev_scoring=state.scoring)
+    with metrics.span("move"):
+        return gso_move(params, state, scoring.to(state.t.dtype), randoms)
 
 
 def gso_move(params, state: SwarmState, scoring: torch.Tensor,
@@ -153,16 +160,21 @@ def swarms_step(params, states: SwarmState, randoms: torch.Tensor, energy_fn):
     """One GSO iteration of S stacked swarms (every field and ``randoms``
     lead with S): the S x G poses scored by one ``energy_fn`` call, then
     every swarm moved by :func:`gso_move` vmapped over S.  No Python loop
-    over swarms: the host launches stay those of one swarm."""
+    over swarms: the host launches stay those of one swarm.  Spans and
+    counter as :func:`gso_step`'s."""
     s, g = states.t.shape[:2]
-    moved_prev = (states.num_neighbors > 0).reshape(s * g)
-    scores = energy_fn(params, states.t.reshape(s * g, 3),
-                       states.q.reshape(s * g, 4),
-                       states.a_rec.reshape(s * g, -1),
-                       states.a_lig.reshape(s * g, -1), moved=moved_prev,
-                       prev_scoring=states.scoring.reshape(s * g))
-    move = torch.func.vmap(lambda st, sc, r: gso_move(params, st, sc, r))
-    return move(states, scores.to(states.t.dtype).reshape(s, g), randoms)
+    with metrics.span("energy"):
+        moved_prev = (states.num_neighbors > 0).reshape(s * g)
+        if metrics.recording():
+            metrics.count("poses_scored", moved_prev)
+        scores = energy_fn(params, states.t.reshape(s * g, 3),
+                           states.q.reshape(s * g, 4),
+                           states.a_rec.reshape(s * g, -1),
+                           states.a_lig.reshape(s * g, -1), moved=moved_prev,
+                           prev_scoring=states.scoring.reshape(s * g))
+    with metrics.span("move"):
+        move = torch.func.vmap(lambda st, sc, r: gso_move(params, st, sc, r))
+        return move(states, scores.to(states.t.dtype).reshape(s, g), randoms)
 
 
 def run_swarm(params, state: SwarmState, randoms: torch.Tensor, energy_fn):

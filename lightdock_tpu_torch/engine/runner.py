@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.metrics import end as end_span
 from ..utils.output import (read_gso_output, read_state_sidecar,
                             write_gso_output, write_state_sidecar)
 from ..utils.positions import split_positions
@@ -344,9 +345,11 @@ class GsoTorchRunner:
         segment's snapshots as it ends: a crash loses at most a segment.
         ``metrics`` (``utils.metrics.RunMetrics``) gets each segment's
         poses and seconds, the device synchronized before the clock is
-        read."""
+        read.  The random stream ends the command line's ``runner_setup``
+        span."""
         g = self.state.t.shape[0]
         randoms = self._randoms(steps)
+        end_span("runner_setup")
         base = self._start_step
         outs = None
         while self._start_step < steps:

@@ -33,6 +33,7 @@ import torch
 from ..engine.gso import StepOutput, SwarmState, swarms_step
 from ..engine.params import BatchScoringParams
 from ..engine.runner import cuda_device, make_energy, resolve_energy_mode
+from ..utils.metrics import end as end_span
 from ..utils.output import read_state_sidecar
 from .mesh import make_mesh
 from .multihost import (barrier, stack_swarm_states, swarm_randoms,
@@ -183,6 +184,7 @@ class SwarmFarmRunner:
         after the device is synchronized and, on a mesh, every rank has
         ended the segment (every rank passes ``metrics`` or none does).  On
         a mesh no rank returns before every rank has written its snapshots.
+        The random stream ends the command line's ``runner_setup`` span.
         Returns (states, the last segment's StepOutput with fields (steps,
         S, ...), S this rank's swarms)."""
         if self._start_step >= steps:
@@ -192,6 +194,7 @@ class SwarmFarmRunner:
             swarm_randoms(self.seed, steps, s_local, g,
                           start_step=self._start_step),
             dtype=self.dtype, device=self.device)
+        end_span("runner_setup")
         base = self._start_step
         outs = None
         while self._start_step < steps:

@@ -20,6 +20,7 @@ import re
 import numpy as np
 
 from . import native
+from .metrics import span
 
 HEADER = "#Coordinates  RecID  LigID  Luciferin  Neighbor's number  Vision Range  Scoring"
 
@@ -38,8 +39,9 @@ def format_gso_output(poses, luciferin, num_neighbors, vision, scoring) -> str:
 
 
 def write_gso_output(path, poses, luciferin, num_neighbors, vision, scoring) -> None:
-    """Write one snapshot with the native writer."""
-    native.write_gso(path, poses, luciferin, num_neighbors, vision, scoring)
+    """Write one snapshot with the native writer (span ``write_text``)."""
+    with span("write_text"):
+        native.write_gso(path, poses, luciferin, num_neighbors, vision, scoring)
 
 
 def sidecar_path(out_path) -> pathlib.Path:
@@ -51,9 +53,10 @@ def sidecar_path(out_path) -> pathlib.Path:
 def write_state_sidecar(out_path, step: int, **arrays) -> None:
     """Write the full-precision swarm state next to the text snapshot: the
     text rounds to 7/8 decimals, the sidecar keeps the device's bits, so a
-    resumed run is bit-identical."""
-    np.savez(sidecar_path(out_path), step=np.int64(step),
-             **{k: np.asarray(v) for k, v in arrays.items()})
+    resumed run is bit-identical (span ``write_sidecar``)."""
+    with span("write_sidecar"):
+        np.savez(sidecar_path(out_path), step=np.int64(step),
+                 **{k: np.asarray(v) for k, v in arrays.items()})
 
 
 def read_state_sidecar(path):
