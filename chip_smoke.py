@@ -17,7 +17,8 @@ the float64 host parity engine:
    the IO library's build time), and
    the registers and resident warps an SM of K1 and K2, and of K3, K4
    and K5 with their local (stack and spill) bytes a thread, rigid and
-   per pose (K4 also with bfloat16 step tables);
+   per pose (K4 also with bfloat16 step tables), and of the box cull
+   kernel with its shared bytes a block;
 2. holds the DFIRE kernel (K1) against its plain PyTorch version on the
    card, at the DFIRE path's shapes (200 poses) and at 37 poses (pose
    padding), with and without the moved gate, and for poses clustered so
@@ -251,6 +252,18 @@ the float64 host parity engine:
     within 1e-9 and the neighbour counts equal, no pair kernel launched;
     ms a step, and the energy's ms a step with the poses it scored, on
     each device, and all 200 poses rescored on the warm card.
+28. holds the box cull kernel (``ops.cull.cull_tile_bits``) against its
+    plain version on the arguments the energy path hands it: the 1k4c
+    stand-in at 6,400 poses (the membrane cell's call: 428 x 104
+    sub-boxes, three cutoffs) and each path of phases 3-15 at 200 poses
+    45 A out, with and without the moved gate: every bit equal but within
+    1e-5 relative of a cutoff^2, nothing the float64 bound keeps dropped,
+    two launches equal, the counts equal to the per-pose bits' sums; no
+    cull launch and all-ones bits with ``cull=False``; the kernel's ms a
+    call (with and without counts), its plain version's with the
+    temporaries it takes, and its bound at 6,400 and 200 poses.  Each
+    path's main run (phases 3, 7, 9, 11, 14, 15) launches it once a step;
+    its kernels-line entry counts those launches.
 
 Ranks that share one card time the sharded paths' correctness, not their
 scaling.
@@ -274,6 +287,7 @@ phase 26's bench runs (``bench_launches``).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -303,6 +317,12 @@ PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 134e12
 # elec product, mask and scale, then on near chunks the p^6 chain, the vdw
 # product and mask and the term add, and the accumulate.
 FLOPS_DFIRE, FLOPS_EV_NEAR, FLOPS_EV_FAR = 9, 22, 13
+# f32 operations per sub-box pair of the box cull, its compares aside: per
+# axis the distance (sub, abs), the reach (2 adds), the gap (sub, clamp)
+# and its square, then the sum's 2 adds; phase 28's poses of a farm call
+# and the band (relative to a cutoff^2) in which the kernel's bits may part
+# from the plain version's.
+FLOPS_CULL, CULL_BATCH, CULL_EDGE_REL = 3 * 7 + 2, 6400, 1e-5
 FARM_SWARMS, FARM_V1_SWARMS, FARM_SINGLE_STEPS = 32, 4, 10
 # Depths of the command-line runs of phase 20: the DNA + ANM run, the
 # multi-swarm glob before and after --resume auto, and the short runs.
@@ -573,33 +593,39 @@ def kernel_cases(path, phase, gen, rng, kernel=None, plain=None):
 
 def drive(path, counters, phase, steps=STEPS):
     """The path's main run: ``steps`` steps through ``run_segmented`` with
-    every kernel count set to 0 just before and read just after.  Returns
-    the path kernel's launches and the step-1 scores from the gso_1
-    sidecar."""
+    every kernel count, the box cull's too, set to 0 just before and read
+    just after.  Returns the path kernel's launches, the step-1 scores
+    from the gso_1 sidecar and the cull kernel's launches (one a step)."""
     import numpy as np
     import torch
+
+    from lightdock_tpu_torch.ops.cull import cull_tile_bits
 
     expected = {f"gso_{s}.out" for s in [1] + list(range(10, steps + 1, 10))}
     with tempfile.TemporaryDirectory() as out_dir:
         runner = path.runner(out_dir)
         for c in counters:
             c.launches = 0
+        cull_tile_bits.launches = 0
         t0 = time.perf_counter()
         final, _ = runner.run_segmented(steps, SEGMENT)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
+        culls = cull_tile_bits.launches
         snaps = {p.name for p in pathlib.Path(out_dir).glob("gso_*.out")}
         with np.load(pathlib.Path(out_dir) / "gso_1.out.npz") as sidecar:
             step1 = sidecar["scoring"]
         cols = snapshot_columns(pathlib.Path(out_dir) / f"gso_{steps}.out")
     ours = launches[path.kernel.__name__]
     say(f"phase {phase}: {path.label}: {steps} steps in {run_s:.3f} s (first run, "
-        f"with snapshots); kernel launches {launches}; snapshots {len(snaps)} "
+        f"with snapshots); kernel launches {launches}, cull_tile_bits {culls}; "
+        f"snapshots {len(snaps)} "
         f"with {cols} pose columns; final scores min {float(final.scoring.min()):.6f} "
         f"max {float(final.scoring.max()):.6f}")
     check(ours == steps, f"{path.label}: {ours} kernel launches in {steps} steps")
     check(sum(launches.values()) == ours, f"{path.label}: other kernels launched")
+    check(culls == steps, f"{path.label}: {culls} cull kernel launches in {steps} steps")
     check(snaps == expected, f"{path.label}: snapshots {sorted(snaps)}")
     # t, q, then the receptor's and the ligand's ANM coefficients
     check(cols == 7 + 2 * path.num_anm, f"{path.label}: {cols} pose columns")
@@ -610,7 +636,7 @@ def drive(path, counters, phase, steps=STEPS):
     if path.num_anm:
         moved = final.a_rec - path.pose(N_POSES)[2]
         check(bool(moved.abs().max() > 0), f"{path.label}: ANM modes never moved")
-    return ours, step1
+    return ours, step1, culls
 
 
 def oracle(path, step1, phase):
@@ -3317,6 +3343,196 @@ def host_engine_phase(card, counters):
     say(f"phase 27: [{card}] done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 28: the box cull kernel against its plain version -------------------
+
+def cull_args(path, n, t=None, moved=None):
+    """The arguments the path's energy function hands ``cull_tile_bits``
+    for its first ``n`` poses (translations ``t`` if given), in its pose
+    order, taken from one ``kernel_args`` call."""
+    from lightdock_tpu_torch.engine import energy_kernel
+
+    seen, real = [], energy_kernel.cull_tile_bits
+
+    def spy(*args, **kwargs):
+        seen.append(args)
+        return real(*args, **kwargs)
+
+    energy_kernel.cull_tile_bits = spy
+    try:
+        path.energy_fn.kernel_args(path.tp, *path.pose(n, t), moved)
+    finally:
+        energy_kernel.cull_tile_bits = real
+    check(len(seen) == 1, f"{path.label}: {len(seen)} cull calls in one kernel_args")
+    return seen[0]
+
+
+def cull_min_d2_f64(args):
+    """Per cutoff: the float64 lower bound of each output entry of
+    ``cull_tile_bits(*args)``, the least over its sub-box pairs (and over
+    its chunk's poses where that cutoff is chunked); inf for a pose the
+    gate leaves out."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightdock_tpu_torch.ops import cull
+    from lightdock_tpu_torch.ops.dfire_pairs import POSE_BLOCK
+
+    rc, rh, lc, lh, t, rot, slack, _, (rg, lg), chunked, moved = args
+    g = t.shape[0]
+    n_r, n_l = rc.shape[0] // rg, lc.shape[0] // lg
+    f64 = [x.double() for x in (rc, rh, lc, lh, t, rot)]
+    s = (torch.zeros(g, dtype=torch.float64, device=t.device) if slack is None
+         else slack.double())
+    per_pose = torch.empty((g, n_r, n_l), dtype=torch.float64, device=t.device)
+    for a in range(0, g, 400):
+        b = min(g, a + 400)
+        d2 = cull.box_d2_lower_bound(*f64[:4], f64[4][a:b], f64[5][a:b], s[a:b],
+                                     torch.zeros_like(s[a:b]))
+        per_pose[a:b] = d2.reshape(b - a, n_r, rg, n_l, lg).amin(dim=(2, 4))
+    if moved is not None:
+        per_pose[~moved] = float("inf")
+    per_pose = per_pose.permute(1, 2, 0)
+    gp = -(-g // POSE_BLOCK) * POSE_BLOCK
+    chunks = F.pad(per_pose, (0, gp - g), value=float("inf")).reshape(
+        n_r, n_l, gp // POSE_BLOCK, POSE_BLOCK).amin(dim=-1)
+    return [chunks if c else per_pose for c in chunked]
+
+
+def cull_case(label, args):
+    """The cull kernel against its plain version on ``args``: every bit
+    equal but where the entry's float64 lower bound lies within
+    ``CULL_EDGE_REL`` of the cutoff^2, no entry that bound keeps dropped,
+    two launches equal, one launch a call, and the counts equal to the
+    per-pose bits' sums.  Returns the max |kernel - plain| off that band."""
+    import torch
+
+    from lightdock_tpu_torch.ops import cull
+
+    rc, rh, lc, lh, t, rot, slack, cuts, groups, chunked, moved = args
+    before = cull.cull_tile_bits.launches
+    bits, counts = cull.cull_tile_bits(*args, count=True)
+    again, _ = cull.cull_tile_bits(*args)
+    per_pose, _ = cull.cull_tile_bits(*args[:9], (False,) * len(cuts), moved)
+    torch.cuda.synchronize()
+    check(cull.cull_tile_bits.launches == before + 3, f"{label}: the cull kernel did not launch")
+    plain = cull.cull_tile_bits_plain(*args)
+    bound = cull_min_d2_f64(args)
+    err, notes = 0, []
+    for k, c in enumerate(cuts):
+        c2 = float(c) ** 2
+        keep = bound[k] <= c2
+        edge = (bound[k] - c2).abs() <= CULL_EDGE_REL * c2
+        kern, ref = bits[k] != 0, plain[k] != 0
+        check(bits[k].shape == plain[k].shape and bits[k].dtype == torch.int32,
+              f"{label}: cutoff {c}: bits {tuple(bits[k].shape)} {bits[k].dtype}, plain "
+              f"{tuple(plain[k].shape)}")
+        check(torch.equal(bits[k], again[k]), f"{label}: cutoff {c}: two launches differ")
+        check(not bool((keep & ~kern).any()),
+              f"{label}: cutoff {c}: the kernel drops an entry the float64 bound keeps")
+        off = (kern != ref) & ~edge
+        err = max(err, int(off.any()))
+        notes.append(f"{c} A {int((kern != ref).sum())} of {kern.numel()} differ "
+                     f"({int(edge.sum())} on the edge), {int(kern.sum())} set")
+    g = t.shape[0]
+    n_r, n_l = rc.shape[0] // groups[0], lc.shape[0] // groups[1]
+    live = g if moved is None else int(moved.sum())
+    checked, kept = (int(x) for x in counts.to(torch.int64).sum(dim=0))
+    say(f"phase 28: {label}: cutoffs " + "; ".join(notes)
+        + f"; counts checked {checked}, kept {kept}")
+    check(err == 0, f"{label}: the cull kernel's bits differ from plain off the cutoff edge")
+    check(checked == live * n_r * n_l and kept == int(per_pose[0].sum()),
+          f"{label}: counts {checked}, {kept} against {live * n_r * n_l}, "
+          f"{int(per_pose[0].sum())}")
+    return err
+
+
+def cull_bound(args, out):
+    """The cull kernel's bound on one call (``bound``'s contract): the
+    sub-box pairs of real boxes and live poses at ``FLOPS_CULL`` and a
+    compare a cutoff each, against the bytes it reads and writes."""
+    import torch
+
+    rc, rh, lc, lh, t, rot, slack, cuts, _, _, moved = args
+    live = t.shape[0] if moved is None else int(moved.sum())
+    real = (int(torch.isfinite(rh).all(dim=1).sum())
+            * int(torch.isfinite(lh).all(dim=1).sum()))
+    ops = live * real * (FLOPS_CULL + len(cuts))
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (rc, rh, lc, lh, t, rot, slack, moved, *out) if x is not None)
+    ms_ops, ms_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ms_ops, "operations") if ms_ops >= ms_bytes else (ms_bytes, "bytes")
+
+
+def cull_phase(card, paths, culls):
+    """Phase 28: the box cull kernel (``ops.cull.cull_tile_bits``) against
+    its plain version on the inputs the energy path builds: the 1k4c
+    stand-in at 6,400 poses (the membrane cell's call) and each driven
+    path at 200 poses, with and without the moved gate; its launches in
+    each path's main run (one a step); none with ``cull=False``; its ms a
+    call, its plain version's and its bound at 6,400 and 200 poses.
+    Returns the cull's entry of the kernels line."""
+    import torch
+
+    from lightdock_tpu_torch import standin
+    from lightdock_tpu_torch.engine.energy_kernel import (kernel_params,
+                                                          make_kernel_energy_fn)
+    from lightdock_tpu_torch.ops import cull
+
+    t_phase = time.perf_counter()
+    say(f"phase 28: [{card}] cull launches in the paths' main runs: {culls}")
+    big = KernelPath("1k4c DFIRE membrane, a farm call",
+                     (*standin.membrane_system(CULL_BATCH), 0))
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    err, mains = 0, {}
+    for path, n in [(big, CULL_BATCH)] + [(p, N_POSES) for p in paths]:
+        # One swarm 45 A out along x at the path's own pose spread: part
+        # of each tile grid culled at 200 poses; the 6,400 farm poses as
+        # they are.
+        t = None if n == CULL_BATCH else path.pos[:n, :3] * 0.5 + [45.0, 0.0, 0.0]
+        for gated in (False, True):
+            moved = (torch.rand(n, generator=gen, device="cuda") < 0.6) if gated else None
+            args = cull_args(path, n, t, moved)
+            check(len(args[7]) in (2, 3), f"{path.label}: {len(args[7])} cutoffs")
+            err = max(err, cull_case(f"{path.label} G={n} moved_gate={gated}", args))
+            if not gated and path in (big, paths[0]):
+                mains[n] = args
+    # cull=False: all-ones bits and no kernel launch.
+    p = paths[0]
+    gen_name = "v1" if p.energy_mode == "kernel_v1" else "v2"
+    fn = make_kernel_energy_fn(kernel_params(p.params, gen_name), "cuda", torch.float32,
+                               cull=False, kernel=gen_name)
+    before = cull.cull_tile_bits.launches
+    args, _ = fn.kernel_args(p.tp, *p.pose(N_POSES))
+    torch.cuda.synchronize()
+    check(cull.cull_tile_bits.launches == before and bool((args[-2] == 1).all())
+          and bool((args[-1] == 1).all()),
+          f"{p.label}: cull=False launched the cull kernel or culled")
+    say(f"phase 28: {p.label} cull=False: no cull launch, every bit 1")
+    times = {}
+    for n, args in sorted(mains.items(), reverse=True):
+        ms = cuda_ms(lambda: cull.cull_tile_bits(*args), 200)
+        ms_count = cuda_ms(lambda: cull.cull_tile_bits(*args, count=True), 200)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain_ms = cuda_ms(lambda: cull.cull_tile_bits_plain(*args), 5)
+        temps = torch.cuda.max_memory_allocated() - base
+        out, _ = cull.cull_tile_bits(*args)
+        bnd = cull_bound(args, out)
+        rc, lc, (rg, lg) = args[0], args[2], args[8]
+        times[n] = (ms, plain_ms, bnd)
+        say(f"phase 28: [{card}] cull kernel at G={n} ({rc.shape[0]} x {lc.shape[0]} "
+            f"sub-boxes, groups {rg} x {lg}, {len(args[7])} cutoffs): {ms:.4f} ms a call "
+            f"({ms_count:.4f} ms counting; CUDA events, mean of 200), plain "
+            f"{plain_ms:.3f} ms (mean of 5; {temps / 1e9:.2f} GB of temporaries), bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x the bound")
+    total = sum(culls.values())
+    say(f"phase 28: [{card}] done in {time.perf_counter() - t_phase:.1f} s")
+    ms, plain_ms, bnd = times[CULL_BATCH]
+    return record("cull_bits", "lightdock_tpu_torch/csrc/cull_bits.cu",
+                  "lightdock_tpu/ops/pallas_energy.py:1661", total, float(err),
+                  ms, plain_ms, bnd)
+
+
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
            rank_launches=None, mixed_launches=None, workflow_launches=None,
            bench_launches=None):
@@ -3365,7 +3581,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     built = _build.load_all(["dfire_pairs", "elec_vdw_pairs", "dfire_pairs_v1",
-                             "elec_vdw_pairs_v1", "probes", "io_native"])
+                             "elec_vdw_pairs_v1", "probes", "cull_bits", "io_native"])
     build_s = time.perf_counter() - t0
     for name, lib in built.items():
         if name == "io_native":
@@ -3385,12 +3601,19 @@ def main() -> int:
     say("phase 1: elec/vdw kernels: " + "; ".join(
         f"{k} {regs} registers, {local} B local, {warps} resident warps an SM"
         for k, (regs, local, warps) in occ_ev.items()))
+    blocks, regs, smem = (ctypes.c_int() for _ in range(3))
+    check(built["cull_bits"].lib.cull_bits_occupancy(
+        ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(smem)) == 0,
+        "cull_bits_occupancy failed")
+    say(f"phase 1: box cull kernel: {regs.value} registers, {smem.value} B shared, "
+        f"{blocks.value * 4} resident warps an SM")
     occ_k4 = k4_occupancy(built, 21, 32)
     say("phase 1: step-form DFIRE kernel (21 channels, 32-row tiles): " + "; ".join(
         f"{k} {regs} registers, {local} B local, {warps} resident warps an SM"
         for k, (regs, local, warps) in occ_k4.items()))
 
     counters = pair_kernels()
+    culls = {}   # the box cull's launches in each path's main run
     gen = torch.Generator(device="cuda").manual_seed(7)
     rng = np.random.RandomState(SEED)
 
@@ -3400,7 +3623,7 @@ def main() -> int:
     k1_err, k1_main = kernel_cases(dfire, 2, gen, rng)
     k1_edge_err, k2_edge_err = edge_cases(2)
     k1_err = max(k1_err, k1_edge_err)
-    k1_launches, step1 = drive(dfire, counters, 3)
+    k1_launches, step1, culls[dfire.label] = drive(dfire, counters, 3)
     oracle(dfire, step1, 3)
     k1_ms, k1_plain_ms = timing(dfire, k1_main, card, (4, 5))
     occupancy_report(4, card, f"1ppe DFIRE, K1 at G={N_POSES}", dp.dfire_pairs, k1_main,
@@ -3417,7 +3640,7 @@ def main() -> int:
                                            pose_bits=False))
     f64_errors(dna, k3_main, 6)
     coincident_pair(6, ev.elec_vdw_pairs, ev.elec_vdw_pairs_plain, "K3")
-    k3_launches, step1 = drive(dna, counters, 7)
+    k3_launches, step1, culls[dna.label] = drive(dna, counters, 7)
     oracle(dna, step1, 7)
     k3_ms, k3_plain_ms = timing(dna, k3_main, card, (8, 8))
     ev_systems = {"rigid": standin.toy_system(*DNA_ATOMS, EV_BATCH, method="dna"),
@@ -3434,7 +3657,7 @@ def main() -> int:
     check(anm.kernel is dp.dfire_pairs, "the DFIRE + ANM path did not choose K1")
     err, anm_main = kernel_cases(anm, 9, gen, rng)
     k1_err = max(k1_err, err)
-    anm_launches, step1 = drive(anm, counters, 9, steps=ANM_STEPS)
+    anm_launches, step1, culls[anm.label] = drive(anm, counters, 9, steps=ANM_STEPS)
     oracle(anm, step1, 9)
 
     # -- 10. K2 against plain, K1 and an empty list at the 1k4c shapes -------
@@ -3445,7 +3668,7 @@ def main() -> int:
 
     # -- 11. the 1k4c-shaped DFIRE membrane path -----------------------------
     active_share(k4c, 11)
-    k2_launches, step1 = drive(k4c, counters, 11)
+    k2_launches, step1, culls[k4c.label] = drive(k4c, counters, 11)
     oracle(k4c, step1, 11)
 
     # -- 12. K2's timings ----------------------------------------------------
@@ -3459,7 +3682,7 @@ def main() -> int:
         *DFIRE_ATOMS, N_POSES, dfire_mode="steps"), energy_mode="kernel_v1")
     check(dfire_v1.kernel is k4.dfire_pairs_v1, "the 1ppe v1 path did not choose K4")
     k4_err, k4_main = v1_kernel_cases(dfire_v1, 13, gen, rng)
-    k4_launches, step1 = drive(dfire_v1, counters, 14)
+    k4_launches, step1, culls[dfire_v1.label] = drive(dfire_v1, counters, 14)
     oracle(dfire_v1, step1, 14)
     k4_ms, k4_plain_ms = timing(dfire_v1, k4_main, card, (14, 14))
     k4_err = max(k4_err, k4_phase(14, card, dfire_v1, occ_k4))
@@ -3475,7 +3698,7 @@ def main() -> int:
     k5_err = max(k5_err, err, cutoff_edges(15, k5.elec_vdw_pairs_v1,
                                            k5.elec_vdw_pairs_v1_plain, pose_bits=True))
     coincident_pair(15, k5.elec_vdw_pairs_v1, k5.elec_vdw_pairs_v1_plain, "K5")
-    k5_launches, step1 = drive(dna_v1, counters, 15)
+    k5_launches, step1, culls[dna_v1.label] = drive(dna_v1, counters, 15)
     oracle(dna_v1, step1, 15)
     k5_ms, k5_plain_ms = timing(dna_v1, k5_main, card, (15, 15))
     err = ev_sizes(15, card, "K5", k5.elec_vdw_pairs_v1, k5.elec_vdw_pairs_v1_plain, {
@@ -3514,6 +3737,9 @@ def main() -> int:
 
     # -- 27. the float64 host parity engine --------------------------------------
     host_engine_phase(card, counters)
+
+    # -- 28. the box cull kernel ---------------------------------------------------
+    cull_record = cull_phase(card, [dfire, dna, k4c, dfire_v1, dna_v1], culls)
 
     check("jax" not in sys.modules and not any(
         m == "lightdock_tpu" or m.startswith("lightdock_tpu.") for m in sys.modules),
@@ -3561,6 +3787,7 @@ def main() -> int:
                mixed_launches=mixed_sites["dfire_pairs_v1"]),
         record("elec_vdw_pairs_v1", "lightdock_tpu_torch/csrc/elec_vdw_pairs_v1.cu",
                f"{pallas}:364", k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound),
+        cull_record,
         *probe_records,
     ]}))
     say(json.dumps({"ok": True, "device": {

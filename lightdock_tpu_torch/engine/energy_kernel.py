@@ -6,8 +6,11 @@ Port of ``lightdock_tpu/engine/energy_pallas.py`` ``make_pallas_energy_fn``
 rotation, the re-centred ligand (G, 3, Nl) with its ANM displacement, the
 receptor (1, Nr, 3), or (G, Nr, 3) with receptor ANM, the box cull with
 ANM slack at the method's energy, interface and (v2) near cutoffs, sub-box
-to tile coarsening, the moved-first + Morton pose order and its inverse,
-the moved gate, then the kernel, the affine finish and the restraint bias.
+to tile coarsening and the moved gate (``ops.cull.cull_tile_bits``: one
+kernel on the card, which also fills the counters ``cull_checked`` and
+``cull_kept`` while a recorder is active), the moved-first + Morton pose
+order and its inverse, then the kernel, the affine finish and the
+restraint bias.
 
 Two kernel generations, as in JAX.  'v2' ORs the energy and near bits over
 each 16-pose chunk and runs ``ops.dfire_pairs`` K1 or
@@ -30,15 +33,15 @@ import torch
 
 from .. import constants as C
 from ..ops import quaternion as qt
-from ..ops.cull import cull_mask_boxes, morton_key, pose_slack
-from ..ops.dfire_pairs import (POSE_BLOCK, dfire_pairs, dfire_pairs_worklist,
-                               dfire_tables)
+from ..ops.cull import chunk_or, cull_tile_bits, morton_key, pose_slack
+from ..ops.dfire_pairs import dfire_pairs, dfire_pairs_worklist, dfire_tables
 from ..ops.dfire_pairs_v1 import dfire_pairs_v1
 from ..ops.elec_vdw_pairs import elec_vdw_pairs
 from ..ops.elec_vdw_pairs_v1 import elec_vdw_pairs_v1
 from ..ops.tiling import (L_TILE, R_TILE, anm_mode_bounds, cull_subsizes,
                           pad_box_groups, rec_box_geometry,
                           spatial_sort_params, tile_boxes)
+from ..utils import metrics
 from .energy_dense import bias, finalize_raw, mode_sum, rotate_translate
 from .params import BatchScoringParams, ensure_dfire_steps, ensure_dfire_types
 
@@ -184,6 +187,9 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         # from elec-only far ones.
         cuts = [C.ELEC_DIST_CUTOFF, C.INTERFACE_CUTOFF, C.VDW_DIST_CUTOFF]
     rc, rh, lc, lh = tensor(rc), tensor(rh), tensor(lc), tensor(lh)
+    # v2 ORs the energy and near bits over pose chunks; the interface bits,
+    # and every bit of v1, stay per pose.
+    chunked = tuple(not v1 and k != 1 for k in range(len(cuts)))
     center = tensor(frame_center(params) if center is None else center)
     # Per-mode displacement bounds widen the boxes by each pose's slack.
     rec_bounds = tensor(anm_mode_bounds(params.rec_nmodes) if rec_bounds is None
@@ -241,35 +247,33 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         if rec_anm:
             rec = rec + mode_sum(a_rec, p.rec_nmodes)                    # (G, Nr, 3)
         if cull:
-            zeros = torch.zeros(g, dtype=t.dtype, device=t.device)
-            rs = pose_slack(a_rec, rec_bounds) if rec_anm else zeros
-            ls = pose_slack(a_lig, lig_bounds) if lig_anm else zeros
-            fine = cull_mask_boxes(rc, rh, lc, lh, t, rot, rs, ls, cuts)
-            # OR-reduce sub-boxes to kernel tiles.
-            bits = [a.reshape(n_r, rg, n_l, lg, g).amax(dim=(1, 3)) for a in fine]
+            slack = pose_slack(a_rec, rec_bounds) if rec_anm else None
+            if lig_anm:
+                ls = pose_slack(a_lig, lig_bounds)
+                slack = ls if slack is None else slack + ls
+            bits, counts = cull_tile_bits(rc, rh, lc, lh, t, rot, slack, cuts, (rg, lg),
+                                          chunked, moved, count=metrics.recording())
+            if counts is not None:
+                metrics.count("cull_checked", counts[:, 0])
+                metrics.count("cull_kept", counts[:, 1])
         else:
             bits = [torch.ones((n_r, n_l, g), dtype=torch.int32,
                                device=t.device)] * len(cuts)
-        if moved is not None:
-            bits = [b * moved.to(torch.int32)[None, None, :] for b in bits]
-        act, act_iface = bits[0], bits[1]
+            if moved is not None:
+                bits = [b * moved.to(torch.int32)[None, None, :] for b in bits]
+            bits = [chunk_or(b) if c else b for b, c in zip(bits, chunked)]
         kwargs = dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface)
         if v1:   # per-pose bits, no chunks
             if dfire:
-                return (rec, lig, p.dfire_dq, thresholds, act, act_iface), kwargs
+                return (rec, lig, p.dfire_dq, thresholds, *bits), kwargs
             return ((rec, lig, p.ele_rec, p.ele_lig, p.vdw_c_rec, p.vdw_c_lig,
-                     p.vdw_r_rec, p.vdw_r_lig, act, act_iface), kwargs)
-        gp = -(-g // POSE_BLOCK) * POSE_BLOCK
-
-        def chunked(a):  # OR over each pose chunk
-            a = torch.nn.functional.pad(a, (0, gp - g))
-            return a.reshape(n_r, n_l, gp // POSE_BLOCK, POSE_BLOCK).amax(dim=-1)
-
-        kwargs["near_chunks"] = chunked(bits[2]) if len(bits) > 2 else None
+                     p.vdw_r_rec, p.vdw_r_lig, *bits), kwargs)
+        act_chunks, act_iface = bits[0], bits[1]
+        kwargs["near_chunks"] = bits[2] if len(bits) > 2 else None
         if dfire:
-            return (rec, lig, tables, chunked(act), act_iface), kwargs
+            return (rec, lig, tables, act_chunks, act_iface), kwargs
         return ((rec, lig, p.ele_rec, p.ele_lig, p.vdw_c_rec, p.vdw_c_lig,
-                 p.vdw_r_rec, p.vdw_r_lig, chunked(act), act_iface), kwargs)
+                 p.vdw_r_rec, p.vdw_r_lig, act_chunks, act_iface), kwargs)
 
     def _compute(p: BatchScoringParams, t, q, a_rec, a_lig, moved):
         args, kwargs = kernel_args(p, t, q, a_rec, a_lig, moved)

@@ -14,11 +14,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from lightdock_tpu_torch.engine import energy_kernel  # noqa: E402
 from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     kernel_params, make_kernel_energy_fn)
 from lightdock_tpu_torch import probes  # noqa: E402
 from lightdock_tpu_torch.engine.gso_host import GsoHostEngine  # noqa: E402
 from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
+from lightdock_tpu_torch.ops import cull  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs_v1 as k4  # noqa: E402
 from lightdock_tpu_torch.ops import elec_vdw_pairs as ev  # noqa: E402
@@ -124,6 +126,113 @@ def test_dfire_kernels_no_active_chunk(cuda, kernel):
     out = getattr(dp, kernel)(*args, **kwargs)
     torch.cuda.synchronize()
     assert not out[0].any() and not out[1].any() and not out[2].any()
+
+
+def _cull_inputs(dev, system, gated, monkeypatch):
+    """The arguments the energy path hands ``cull_tile_bits`` at a cell's
+    size, in its pose order: the 1k4c stand-in (membrane, three cutoffs,
+    K2) at 6,400 poses, or the 1ppe stand-in at 200 poses, as one swarm
+    45 A from the receptor's centre so that part of the grid is culled;
+    with or without a moved gate."""
+    if system == "1k4c":
+        params, pos = standin.membrane_system(6400)
+    else:
+        params, pos, _ = toy_system(1615, 221, 200, seed=5)
+        pos[:, :3] = pos[:, :3] * 0.5 + [45.0, 0.0, 0.0]
+    params = kernel_params(params)
+    fn = make_kernel_energy_fn(params, dev, torch.float32)
+    g = pos.shape[0]
+    x = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    none = torch.zeros((g, 0), device=dev)
+    moved = (torch.as_tensor(np.random.RandomState(7).rand(g) < 0.6, device=dev)
+             if gated else None)
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return cull.cull_tile_bits(*args, **kwargs)
+
+    monkeypatch.setattr(energy_kernel, "cull_tile_bits", spy)
+    fn(torch_params(params, dev, torch.float32), x[:, :3], x[:, 3:7], none, none,
+       moved=moved, prev_scoring=torch.zeros(g, device=dev))
+    (args, kwargs), = seen
+    return args, kwargs
+
+
+def _min_d2_f64(args, chunked):
+    """Per cutoff: the float64 lower bound of each output entry, the least
+    over its sub-box pairs (and its chunk's poses where chunked); inf for
+    a pose the gate leaves out."""
+    rc, rh, lc, lh, t, rot, slack, cuts, (rg, lg), _, moved = args
+    g = t.shape[0]
+    n_r, n_l = rc.shape[0] // rg, lc.shape[0] // lg
+    f64 = [None if x is None else x.double() for x in (rc, rh, lc, lh, t, rot, slack)]
+    s = f64[6] if f64[6] is not None else torch.zeros(g, dtype=torch.float64, device=t.device)
+    per_pose = torch.empty((g, n_r, n_l), dtype=torch.float64, device=t.device)
+    for a in range(0, g, 400):
+        b = min(g, a + 400)
+        d2 = cull.box_d2_lower_bound(*f64[:4], f64[4][a:b], f64[5][a:b], s[a:b],
+                                     torch.zeros_like(s[a:b]))
+        per_pose[a:b] = d2.reshape(b - a, n_r, rg, n_l, lg).amin(dim=(2, 4))
+    if moved is not None:
+        per_pose[~moved] = float("inf")
+    per_pose = per_pose.permute(1, 2, 0)
+    gp = -(-g // dp.POSE_BLOCK) * dp.POSE_BLOCK
+    chunks = torch.nn.functional.pad(per_pose, (0, gp - g), value=float("inf")).reshape(
+        n_r, n_l, gp // dp.POSE_BLOCK, dp.POSE_BLOCK).amin(dim=-1)
+    return [chunks if c else per_pose for c in chunked]
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("system", ["1k4c", "1ppe"])
+def test_cull_kernel_matches_plain(cuda, system, gated, monkeypatch):
+    """The cull kernel against the plain version on the card at the cells'
+    sizes: every bit equal but where the entry's float64 lower bound lies
+    within 1e-5 relative of the cutoff^2; no entry the float64 bound keeps
+    dropped; the counters equal to the bits' sums; two launches equal."""
+    args, kwargs = _cull_inputs(cuda, system, gated, monkeypatch)
+    rc, rh, lc, lh, t, rot, slack, cuts, groups, chunked, moved = args
+    assert kwargs == {"count": False} and len(cuts) == 3
+    before = cull.cull_tile_bits.launches
+    bits, counts = cull.cull_tile_bits(*args, count=True)
+    again, _ = cull.cull_tile_bits(*args)
+    torch.cuda.synchronize()
+    assert cull.cull_tile_bits.launches == before + 2
+    plain = cull.cull_tile_bits_plain(*args)
+    bound = _min_d2_f64(args, chunked)
+    report = []
+    for k, c in enumerate(cuts):
+        c2 = float(c) ** 2
+        keep = bound[k] <= c2
+        near = (bound[k] - c2).abs() <= 1e-5 * c2
+        kern, ref = bits[k] != 0, plain[k] != 0
+        assert torch.equal(bits[k], again[k])
+        assert not bool((keep & ~kern).any()), f"cutoff {c}: an entry the bound keeps dropped"
+        assert not bool(((kern != ref) & ~near).any()), f"cutoff {c}: bits differ off the edge"
+        assert 0 < int(kern.sum()) < kern.numel()
+        report.append(f"cutoff {c}: {int((kern != ref).sum())} of {kern.numel()} differ, "
+                      f"{int(near.sum())} near")
+    g = t.shape[0]
+    n_r, n_l = rc.shape[0] // groups[0], lc.shape[0] // groups[1]
+    live = g if moved is None else int(moved.sum())
+    checked, kept = (int(x) for x in counts.to(torch.int64).sum(dim=0))
+    per_pose, _ = cull.cull_tile_bits(*args[:9], (False,) * len(cuts), moved, count=False)
+    assert checked == live * n_r * n_l and kept == int(per_pose[0].sum())
+    print(f"{system} G={g} gated={gated}: " + "; ".join(report)
+          + f"; checked {checked}, kept {kept}")
+
+
+def test_cull_kernel_refuses_float64_on_card(cuda, monkeypatch):
+    """On the card the cull takes the kernel whatever the dtype: float64
+    inputs raise, and the plain chain never runs there."""
+    args, _ = _cull_inputs(cuda, "1ppe", False, monkeypatch)
+    f64 = [x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+           for x in args]
+    monkeypatch.setattr(cull, "cull_tile_bits_plain", None)
+    before = cull.cull_tile_bits.launches
+    with pytest.raises(TypeError, match="float32"):
+        cull.cull_tile_bits(*f64)
+    assert cull.cull_tile_bits.launches == before
 
 
 def test_energy_fn_on_card_matches_cpu(cuda):
