@@ -6,7 +6,9 @@ Every job of the window must have written every snapshot of every swarm
 or left one out failed.  Then, on a sample drawn from the run's seed:
 
 - ``score_gap``: the gap by which a written score lies outside the
-  plain reference's bracket (``reference.dfire``), over 1 + |score|, at
+  plain reference's bracket (the configuration's ``method``: ``dfire``
+  scored by ``reference.dfire``, ``dna`` by ``reference.dna``; another
+  method has no reference and is refused at set-up), over 1 + |score|, at
   its widest.  A snapshot's score is that of the pose before the step's
   move, so a lone snapshot is scored again where the glowworm did not move
   (no neighbours), and a followed one everywhere the follow vouches for.
@@ -35,10 +37,11 @@ import numpy as np
 
 from reference import gso as ref_gso
 from reference import gsofile
-from reference.dfire import DfireScorer, Side, read_potential
+from reference.pose import Side
 from reference.rng import uniforms
 
 from .inputs import CHECK, stream
+from .methods import method
 
 NUMBERS = ("score_gap", "state_off_pct")
 POSE_TOLERANCE = 1e-4       # A and quaternion units; float32 moves drift ~1e-6
@@ -51,12 +54,16 @@ def snapshot_steps(steps: int) -> list:
 
 
 def make_scorer(cx, device, dtype):
-    """The reference's scorer of the complex ``cx`` (``ldbench.inputs``),
-    read from its files."""
+    """The reference's scorer of the complex ``cx`` (``ldbench.inputs``) by
+    its configuration's method, read from its files: the PDB files, the
+    restraints of ``setup.json``, the ANM modes it names, and the method's
+    table."""
     setup = json.loads(cx.setup.read_text())
-    rec = Side(cx.root / "lightdock_rec.pdb", setup["receptor_restraints"]["active"])
-    lig = Side(cx.root / "lightdock_lig.pdb", setup["ligand_restraints"]["active"])
-    return DfireScorer(rec, lig, read_potential(cx.data / "DCparams"), device, dtype=dtype)
+    sides = [Side(cx.root / f"lightdock_{name}.pdb", setup[f"{side}_restraints"]["active"],
+                  cx.root / f"{name}_nm.npy" if setup["use_anm"] and setup[f"anm_{name}"]
+                  else None)
+             for side, name in (("receptor", "rec"), ("ligand", "lig"))]
+    return method(cx.config["method"]).scorer(cx, *sides, device, dtype)
 
 
 class Checker:
@@ -69,14 +76,12 @@ class Checker:
         self.scorer = make_scorer(cx, device, torch.float64)
         self.seed = json.loads(cx.setup.read_text())["seed"]
         self.steps = cx.config["steps"]
+        self.anm_rec = cx.config.get("anm_rec", 0)
         self.g = cx.config["glowworms"]
         self.draws = uniforms(self.seed, self.steps * self.g).reshape(self.steps, self.g)
         self.found = dict.fromkeys(NUMBERS, 0.0)
         self.checked = {"poses_scored": 0, "glowworms_followed": 0, "glowworms_off": 0,
                         "segments": 0}
-
-    def score3(self, t, q, anm=None):
-        return self.scorer.score(t, q)
 
     def missing(self, job_dir, swarms: int) -> list:
         """The snapshots of ``job_dir`` that are not there."""
@@ -106,7 +111,8 @@ class Checker:
         still = nn == 0
         if not still.any():
             return
-        mid, lo, hi = self.score3(poses[still, :3], poses[still, 3:7])
+        mid, lo, hi = self.scorer.score(poses[still, :3], poses[still, 3:7],
+                                        poses[still, 7:])
         self._score_gap(score[still], mid, lo, hi)
 
     def _score_gap(self, score, mid, lo, hi):
@@ -123,7 +129,7 @@ class Checker:
             poses, luc, nn, vis, score = gsofile.read(swarm_dir / f"gso_{start}.out")
             state = ref_gso.State(poses[:, :3], poses[:, 3:7], poses[:, 7:], luc, vis, score, nn)
         out, ok, luc_band, score_band = ref_gso.follow(state, self.draws[start:end],
-                                                       self.score3)
+                                                       self.scorer.score, self.anm_rec)
         poses, luc, nn, vis, score = gsofile.read(swarm_dir / f"gso_{end}.out")
         ref_poses = np.concatenate([out.t, out.q, out.anm], axis=1)
         if poses.shape != ref_poses.shape:

@@ -1,9 +1,9 @@
 """The control: the reference put in the program's place, one precision down.
 
 The configurations state float32, so the control runs the whole GSO job
-(scores and moves) in bfloat16 on the same inputs and writes the same
-``swarm_<s>/gso_<step>.out`` snapshots the program writes.  The checks
-have to find it wrong.
+(scores and moves, the ANM coefficients' too) in bfloat16 on the same
+inputs and writes the same ``swarm_<s>/gso_<step>.out`` snapshots the
+program writes.  The checks have to find it wrong.
 """
 
 from __future__ import annotations
@@ -32,16 +32,28 @@ def _slerp(q1, q2, t):
     return torch.where(linear[:, None], norm(q1 + (q2 - q1) * t), sph)
 
 
+def _move(a, sel, has):
+    """ANM coefficients ``a`` moved 0.5 towards those of ``sel``."""
+    if a.shape[1] == 0:
+        return a
+    d = a[sel] - a
+    n = torch.sqrt((d * d).sum(-1, keepdim=True))
+    return torch.where(has[:, None], a + d * (ref_gso.STEP_A / torch.where(
+        n > 0, n, torch.ones_like(n))), a)
+
+
 def run_swarm(poses: np.ndarray, seed: int, steps: int, scorer, out_dir,
-              dtype=torch.bfloat16) -> None:
-    """One swarm from ``poses`` (G, 7) for ``steps`` steps at ``dtype``,
-    scored by ``scorer`` (a ``DfireScorer`` at ``dtype``), its snapshots at
+              dtype=torch.bfloat16, anm_rec: int = 0) -> None:
+    """One swarm from ``poses`` (G, 7 + K) for ``steps`` steps at ``dtype``,
+    scored by ``scorer`` (a reference scorer at ``dtype``), the first
+    ``anm_rec`` of the K ANM coefficients the receptor's, its snapshots at
     step 1 and every tenth written under ``out_dir``."""
     dev = scorer.device
     g = poses.shape[0]
     draws = torch.as_tensor(uniforms(seed, steps * g).reshape(steps, g), dtype=dtype, device=dev)
     t = torch.as_tensor(poses[:, :3], dtype=dtype, device=dev)
     q = torch.as_tensor(poses[:, 3:7], dtype=dtype, device=dev)
+    anm = torch.as_tensor(poses[:, 7:], dtype=dtype, device=dev)
     luc = torch.full((g,), 5.0, dtype=dtype, device=dev)
     vision = torch.full((g,), 0.2, dtype=dtype, device=dev)
     score = torch.zeros(g, dtype=dtype, device=dev)
@@ -51,7 +63,7 @@ def run_swarm(poses: np.ndarray, seed: int, steps: int, scorer, out_dir,
     out_dir.mkdir(parents=True, exist_ok=True)
     for step in range(1, steps + 1):
         if bool(moved.any()):
-            s = scorer.score(t[moved].double().cpu().numpy(), q[moved].double().cpu().numpy())[0]
+            s = scorer.score(*(x[moved].double().cpu().numpy() for x in (t, q, anm)))[0]
             score[moved] = torch.as_tensor(s, dtype=dtype, device=dev)
         luc = (1 - ref_gso.RHO) * luc + ref_gso.GAMMA * score
         dist = torch.sqrt(((t[:, None, :] - t[None, :, :]) ** 2).sum(-1))
@@ -70,10 +82,11 @@ def run_swarm(poses: np.ndarray, seed: int, steps: int, scorer, out_dir,
         t = torch.where(has[:, None], t + delta * (ref_gso.STEP_T / torch.where(
             norm > 0, norm, torch.ones_like(norm))), t)
         q = torch.where(has[:, None], _slerp(q, q[sel], ref_gso.STEP_Q), q)
+        anm = torch.cat([_move(a, sel, has) for a in (anm[:, :anm_rec], anm[:, anm_rec:])], 1)
         vision = torch.clamp(vision + ref_gso.BETA * (ref_gso.MAX_NEIGHBOURS - count).to(dtype),
                              0.0, ref_gso.MAX_VISION)
         moved = count > 0
         if step == 1 or step % 10 == 0:
-            cols = [x.double().cpu().numpy() for x in (t, q, luc, count, vision, score)]
-            gsofile.write(out_dir / f"gso_{step}.out", np.concatenate(cols[:2], axis=1),
-                          *cols[2:])
+            cols = [x.double().cpu().numpy() for x in (t, q, anm, luc, count, vision, score)]
+            gsofile.write(out_dir / f"gso_{step}.out", np.concatenate(cols[:3], axis=1),
+                          *cols[3:])

@@ -1,15 +1,13 @@
-"""DFIRE scoring of rigid poses, plainly, with a bracket for pairs on an edge.
+"""DFIRE scoring, plainly, with a bracket for pairs on an edge.
 
-A pose (t, q) moves the ligand: x' = R(q) x + t, with R the matrix of
-q v q^-1 divided by |q|^2, as LightDock writes it.  For each receptor and
-ligand atom pair within 15 A, d = |x_r - x'_l| gives the slot
+A pose (t, q and its ANM coefficients) places both molecules as
+``reference.pose`` says.  For each receptor and ligand atom pair within
+15 A, d = |x_r - x_l| gives the slot
 trunc(2 d - 1) (clamped to 0..50), the slot its bin (``dist_to_bins`` - 1)
 and the pair its value ``potential[type_r, type_l, bin]``; the flat table is
 read with LightDock's stride of 20 bins, so bins past 19 spill into the
-next type's row.  The score is ``(4.7 - 0.0157 sum) (1 + f_r + f_l) - 999
-m``: f_r and f_l are the shares of each side's active restraint residues
-with an atom within 2.45 A of the other side, m the share of membrane beads
-(``MMB`` ``BJ`` atoms) within 2.45 A of the ligand.
+next type's row.  The score is ``4.7 - 0.0157 sum`` under the bias of
+``reference.pose``, an atom in contact within 2.45 A of the other side.
 
 A pair whose distance lies within ``EDGE_EPS`` of a slot edge, of the
 cutoff or of the contact distance may fall on either side in a program
@@ -28,6 +26,8 @@ import pathlib
 import numpy as np
 import torch
 
+from .pose import Bias, Poser, Side, pair_d2
+
 TABLES = json.loads(pathlib.Path(__file__).with_name("dfire_tables.json").read_text())
 N_TYPES = 169
 STRIDE = 20          # bins a type pair takes in the flat table
@@ -37,24 +37,8 @@ CUTOFF_SLOT = 29     # 2 * 15 - 1
 CONTACT = 2.45       # (3.9 + 1) / 2
 SCALE = 0.0157
 OFFSET = 4.7
-MEMBRANE_PENALTY = 999.0
 EDGE_EPS = 5e-5      # A
 CHUNK_PAIRS = 60_000_000  # atom pairs x poses a chunk (GB-sized temporaries)
-
-
-def read_pdb(path):
-    """(residue names, atom names, residue ids, coordinates (N, 3)) of the
-    ATOM and HETATM records, by LightDock's fixed columns."""
-    res_names, atom_names, res_ids, xyz = [], [], [], []
-    for line in pathlib.Path(path).read_text().splitlines():
-        if line[:6] not in ("ATOM  ", "HETATM"):
-            continue
-        res = line[17:20].strip()
-        res_names.append(res)
-        atom_names.append(line[12:16].strip())
-        res_ids.append(f"{line[21].strip()}.{res}.{line[22:26].strip()}{line[26].strip()}")
-        xyz.append((float(line[30:38]), float(line[38:46]), float(line[46:54])))
-    return res_names, atom_names, res_ids, np.asarray(xyz, dtype=np.float64)
 
 
 def atom_types(res_names, atom_names) -> np.ndarray:
@@ -86,32 +70,8 @@ def table_by_bins(flat: np.ndarray) -> np.ndarray:
     return out
 
 
-class Side:
-    """One molecule: coordinates, DFIRE types, the atoms of each active
-    restraint residue and the membrane beads."""
-
-    def __init__(self, pdb_path, restraints=()):
-        res_names, atom_names, res_ids, self.xyz = read_pdb(pdb_path)
-        self.types = atom_types(res_names, atom_names)
-        self.restraints = [np.array([i for i, r in enumerate(res_ids) if r == rid])
-                           for rid in sorted(set(restraints)) if rid in res_ids]
-        self.membrane = np.array([i for i, (r, a) in enumerate(zip(res_names, atom_names))
-                                  if r == "MMB" and a == "BJ"], dtype=np.int64)
-
-
-def rotation(q: torch.Tensor) -> torch.Tensor:
-    """(P, 3, 3) matrices of q v q^-1 for quaternions (P, 4) (w, x, y, z)."""
-    w, x, y, z = q.unbind(-1)
-    m = torch.stack([
-        torch.stack([w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
-        torch.stack([2 * (x * y + w * z), w * w - x * x + y * y - z * z, 2 * (y * z - w * x)], -1),
-        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), w * w - x * x - y * y + z * z], -1),
-    ], -2)
-    return m / (w * w + x * x + y * y + z * z)[:, None, None]
-
-
 class DfireScorer:
-    """Scores of rigid poses of ``lig`` against ``rec`` (two :class:`Side`)
+    """Scores of poses of ``lig`` against ``rec`` (two ``reference.pose.Side``)
     on ``device`` at ``dtype``, ``CHUNK_PAIRS`` atom pairs of poses at a
     time.  At float64 :meth:`score` also gives the bracket; at a lower
     precision it computes every step in that precision (the control)."""
@@ -119,31 +79,28 @@ class DfireScorer:
     def __init__(self, rec: Side, lig: Side, potential: np.ndarray, device,
                  dtype=torch.float64):
         self.device, self.dtype, self.eps = device, dtype, EDGE_EPS
-        self.rec = torch.as_tensor(rec.xyz, dtype=dtype, device=device)
-        self.lig = torch.as_tensor(lig.xyz, dtype=dtype, device=device)
+        self.poser = Poser(rec, lig, device, dtype)
+        self.bias = Bias(rec, lig, device)
         self.table = torch.as_tensor(table_by_bins(potential), dtype=dtype,
                                      device=device).reshape(-1)
         self.bin_of_slot = torch.as_tensor(np.array(TABLES["dist_to_bins"]) - 1,
                                            dtype=torch.int64, device=device)
-        self.row = (torch.as_tensor(rec.types, device=device)[:, None] * N_TYPES
-                    + torch.as_tensor(lig.types, device=device)[None, :]) * 32
-        self.rec_restraints = [torch.as_tensor(r, device=device) for r in rec.restraints]
-        self.lig_restraints = [torch.as_tensor(r, device=device) for r in lig.restraints]
-        self.membrane = torch.as_tensor(rec.membrane, device=device)
-        self.per_chunk = max(1, CHUNK_PAIRS // (self.rec.shape[0] * self.lig.shape[0]))
+        types = [torch.as_tensor(atom_types(s.res_names, s.atom_names), device=device)
+                 for s in (rec, lig)]
+        self.row = (types[0][:, None] * N_TYPES + types[1][None, :]) * 32
+        self.per_chunk = max(1, CHUNK_PAIRS // (len(rec.xyz) * len(lig.xyz)))
 
-    def score(self, t: np.ndarray, q: np.ndarray):
-        """(score, low, high), each (P,) float64, of poses t (P, 3), q (P, 4)."""
-        parts = [self._chunk(t[i:i + self.per_chunk], q[i:i + self.per_chunk])
+    def score(self, t: np.ndarray, q: np.ndarray, anm=None):
+        """(score, low, high), each (P,) float64, of poses t (P, 3), q (P, 4)
+        and ANM coefficients ``anm`` (P, K) where the sides have modes."""
+        parts = [self._chunk(t[i:i + self.per_chunk], q[i:i + self.per_chunk],
+                             None if anm is None else anm[i:i + self.per_chunk])
                  for i in range(0, t.shape[0], self.per_chunk)]
         return tuple(np.concatenate([p[k] for p in parts]) for k in range(3))
 
-    def _chunk(self, t, q):
+    def _chunk(self, t, q, anm):
         dt = self.dtype
-        t = torch.as_tensor(np.asarray(t, np.float64), device=self.device).to(dt)
-        q = torch.as_tensor(np.asarray(q, np.float64), device=self.device).to(dt)
-        lig = torch.einsum("pij,nj->pni", rotation(q), self.lig) + t[:, None, :]
-        d2 = sum((lig[:, None, :, c] - self.rec[None, :, None, c]) ** 2 for c in range(3))
+        d2 = pair_d2(*self.poser.place(t, q, anm))
         d = torch.sqrt(d2)
         within = d2 <= CUTOFF2
         u = 2.0 * d - 1.0
@@ -152,29 +109,12 @@ class DfireScorer:
         value = self.table[self.row[None] + self.bin_of_slot[slot]]
         value = torch.where(within, value, torch.zeros((), dtype=dt, device=self.device))
         raw = value.sum(dim=(1, 2), dtype=dt).double()
-        near = d2 <= CONTACT ** 2
-        fr = self._share(self.rec_restraints, lambda idx: near[:, idx, :])
-        fl = self._share(self.lig_restraints, lambda idx: near[:, :, idx])
-        mem = self._membrane(near)
-        score = (OFFSET - SCALE * raw) * (1.0 + fr + fl) - MEMBRANE_PENALTY * mem
+        score = self.bias.apply(OFFSET - SCALE * raw, d2 <= CONTACT ** 2)
         if dt != torch.float64:
             return (score.cpu().numpy(),) * 3
-        return (score.cpu().numpy(),) + self._bracket(d, u, value, raw, within)
+        return (score.cpu().numpy(),) + self._bracket(d, u, value, raw)
 
-    def _share(self, residues, pick):
-        """The share of ``residues`` (atom index tensors) with an atom whose
-        entry of ``pick(idx)`` is true for some atom of the other side."""
-        if not residues:
-            return torch.zeros((), dtype=torch.float64, device=self.device)
-        hits = [pick(idx).flatten(1).any(dim=1) for idx in residues]
-        return torch.stack(hits).double().mean(dim=0)
-
-    def _membrane(self, near):
-        if self.membrane.numel() == 0:
-            return torch.zeros((), dtype=torch.float64, device=self.device)
-        return near[:, self.membrane, :].any(dim=2).double().mean(dim=1)
-
-    def _bracket(self, d, u, value, raw, within):
+    def _bracket(self, d, u, value, raw):
         """The lowest and highest scores allowed when every pair within
         ``eps`` of an edge may fall on either side of it."""
         e = self.eps
@@ -192,17 +132,5 @@ class DfireScorer:
         low = torch.zeros_like(raw).index_add_(0, p, (options.min(0).values - now).double())
         high = torch.zeros_like(raw).index_add_(0, p, (options.max(0).values - now).double())
         raw_lo, raw_hi = raw + low, raw + high
-        sure = d < CONTACT - e
-        maybe = d <= CONTACT + e
-        shares = []
-        for contact in (sure, maybe):
-            shares.append((self._share(self.rec_restraints, lambda idx: contact[:, idx, :])
-                           + self._share(self.lig_restraints, lambda idx: contact[:, :, idx]),
-                           self._membrane(contact)))
-        (f_lo, m_lo), (f_hi, m_hi) = shares
-        base = torch.stack([OFFSET - SCALE * raw_hi, OFFSET - SCALE * raw_lo])
-        factor = torch.stack([1.0 + f_lo + 0 * raw, 1.0 + f_hi + 0 * raw])
-        corners = (base[:, None] * factor[None, :]).reshape(4, -1)
-        lo = corners.min(0).values - MEMBRANE_PENALTY * (m_hi + 0 * raw)
-        hi = corners.max(0).values - MEMBRANE_PENALTY * (m_lo + 0 * raw)
-        return lo.cpu().numpy(), hi.cpu().numpy()
+        return self.bias.bracket(OFFSET - SCALE * raw_hi, OFFSET - SCALE * raw_lo,
+                                 d < CONTACT - e, d <= CONTACT + e)

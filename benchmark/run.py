@@ -3,12 +3,14 @@
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up makes the cell's complex and every job's positions from the seed
-(``ldbench.inputs``), writes a DFIRE table and points ``LIGHTDOCK_DATA`` at
-it, and runs one whole warm-up job.  The window is a closed loop of one
+Set-up makes the cell's complex (for DFIRE with its table, to which it
+points ``LIGHTDOCK_DATA``; with its ANM modes where the configuration has
+them) and every job's positions from the seed (``ldbench.inputs``), and
+runs one whole warm-up job.  The window is a closed loop of one
 client: jobs, each one call of the program's command line
 (``lightdock_tpu_torch.cli.main``, the command ``lightdock-tpu-torch
-setup.json <positions> 100 dfire`` in-process), start back to back until
+setup.json <positions> 100 <method>`` in-process, with ``--anm-dir``
+naming the complex's directory where it has modes), start back to back until
 ``--seconds`` have passed; the last runs to its end.  After the window the
 outputs of the timed jobs are checked against the plain reference
 (``ldbench.check``);
@@ -44,6 +46,7 @@ sys.path.insert(1, str(HERE.parent))
 
 from ldbench import check, manifest  # noqa: E402
 from ldbench.inputs import Complex  # noqa: E402
+from ldbench.methods import method  # noqa: E402
 from ldbench.record import RunRecord  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "lightdock_tpu")
@@ -93,7 +96,10 @@ class Jobs:
         init = self.dir(job) / "init"
         positions = (str(init / "initial_positions_*.dat") if self.cell["traffic"]["glob"]
                      else str(init / "initial_positions_0.dat"))
-        argv = [str(self.setup), positions, str(self.steps), self.cell["config"]["method"]]
+        config = self.cell["config"]
+        argv = [str(self.setup), positions, str(self.steps), config["method"]]
+        if config.get("anm_rec", 0) + config.get("anm_lig", 0):
+            argv += ["--anm-dir", str(self.setup.parent)]
         if self.platform == "cpu":
             argv += ["--platform", "cpu"]
         if self.trace:
@@ -265,7 +271,8 @@ def main(argv=None) -> int:
 
 def make_inputs(cell, seed, run_dir, n_jobs):
     """The complex and each job's positions files; returns (complex, {job:
-    initial poses})."""
+    initial poses}).  Raises first where the method has no reference."""
+    method(cell["config"]["method"])
     cx = Complex(cell["config"], seed, pathlib.Path(run_dir) / "complex")
     os.environ["LIGHTDOCK_DATA"] = str(cx.data)
     swarms = cell["traffic"]["swarms"]
@@ -378,7 +385,8 @@ def readings(args, cell, platform) -> int:
         k = cell["check"]["swarms"]
         cdir = run_dir / "control"
         for s in range(k):
-            run_swarm(initial[0][s], ctl.seed, ctl.steps, scorer, cdir / f"swarm_{s}")
+            run_swarm(initial[0][s], ctl.seed, ctl.steps, scorer, cdir / f"swarm_{s}",
+                      anm_rec=ctl.anm_rec)
         _, _, out["control"] = check.verify(
             ctl, [{"dir": cdir, "initial": initial[0][:k], "ok": True, "job": 0}], seed, limits)
         print(json.dumps(out), flush=True)

@@ -4,7 +4,9 @@ control in the program's place on three seeds is not; nor is a run with
 the timed path broken underneath, where the cells run it: half of the
 batch left out of the kernel energy function (the mean of the rest in its
 place), and a GSO step (the farm's, or the one-swarm runner's move) that
-returns its state unchanged.
+returns its state unchanged.  The example DNA + ANM cell (``examples/``),
+added as new files to a copy of the benchmark, at the 1azp size: sound, it
+is correct; the control on three seeds is not.
 
     python -m pytest --noconftest -m cuda benchmark/test_bench_card.py -q
 """
@@ -20,9 +22,12 @@ sys.path.insert(0, str(HERE))
 sys.path.insert(1, str(HERE.parent))
 
 import run  # noqa: E402
+from examples.add import copy_with  # noqa: E402
 from ldbench import check, manifest  # noqa: E402
 
 CELLS = ["1k4c-dfire-membrane.glob32", "1ppe-dfire-rigid.swarm1"]
+EXAMPLE = HERE / "examples" / "1azp-dna-anm.glob32.json"
+EXAMPLE_CELLS = ["1azp-dna-anm.glob32"]
 
 
 @pytest.fixture
@@ -53,6 +58,30 @@ def test_cell_is_correct(card, capsys, cell):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(card, capsys, cell):
+    limits = manifest.load("workloads", cell)["limits"]
+    for line in lines(capsys, cell, "--readings", "21,22,23"):
+        assert all(line["program"][k] <= limits[k] for k in check.NUMBERS), line
+        assert any(line["control"][k] > limits[k] for k in check.NUMBERS), line
+
+
+@pytest.fixture
+def example(monkeypatch, tmp_path):
+    """The harness reads a copy of the benchmark with the example added."""
+    copy = copy_with(EXAMPLE, tmp_path / "bench")
+    monkeypatch.setattr(manifest, "HERE", copy / "benchmark")
+    monkeypatch.setattr(manifest, "BENCHMARK", copy / "BENCHMARK.json")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", EXAMPLE_CELLS)
+def test_example_cell_is_correct(card, example, capsys, cell):
+    result = lines(capsys, cell)[-1]
+    assert result["correct"] and result["device"]["platform"] == "gpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", EXAMPLE_CELLS)
+def test_example_control_is_not_correct(card, example, capsys, cell):
     limits = manifest.load("workloads", cell)["limits"]
     for line in lines(capsys, cell, "--readings", "21,22,23"):
         assert all(line["program"][k] <= limits[k] for k in check.NUMBERS), line

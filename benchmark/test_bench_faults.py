@@ -5,9 +5,15 @@ or with the timed path broken underneath, it is not.
 The faults a one-card cell of this benchmark can have: a step that returns
 its state unchanged; half of the batch of poses left out of the energy,
 the mean of the rest in its place; an answer altered where it is written;
-a snapshot left out.  At these sizes the program's ``auto`` mode scores on
-the dense path; ``test_bench_card.py`` plants the first two on the kernel
-path at the cells' own sizes.
+a snapshot left out; and where the cell has ANM modes, the receptor's
+coefficients zeroed in the energy the program scores with, and the ANM
+part of the move skipped.  At these sizes the program's ``auto`` mode
+scores on the dense path; ``test_bench_card.py`` plants the first two on
+the kernel path at the cells' own sizes.
+
+Beside the cells of ``BENCHMARK.json``, the example DNA + ANM cell
+(``examples/``) runs here from a copy of the benchmark to which it is
+added as new files, as a later change would add it.
 
     python -m pytest benchmark/test_bench_faults.py -q
 """
@@ -24,6 +30,7 @@ sys.path.insert(0, str(HERE))
 sys.path.insert(1, str(HERE.parent))
 
 import run  # noqa: E402
+from examples.add import copy_with  # noqa: E402
 from ldbench import check, manifest  # noqa: E402
 
 SMALL = {"config": {"receptor_atoms": 300, "ligand_atoms": 60, "glowworms": 30, "steps": 20},
@@ -35,7 +42,25 @@ CELLS = {
         "check": {"jobs": 2, "swarms": 3, "segments": 3, "score_snapshots": 2}},
     "1ppe-dfire-rigid.swarm1": {
         "check": {"jobs": 3, "swarms": 1, "segments": 3, "score_snapshots": 2}},
+    "1azp-dna-anm.glob32": {
+        "config": {"ligand_atoms": 90, "swarm_centres": 3},
+        "traffic": {"swarms": 3},
+        "check": {"jobs": 2, "swarms": 3, "segments": 3, "score_snapshots": 2}},
 }
+EXAMPLES = {"1azp-dna-anm.glob32": HERE / "examples" / "1azp-dna-anm.glob32.json"}
+ANM_CELLS = ["1azp-dna-anm.glob32"]
+
+
+@pytest.fixture(autouse=True)
+def example_cell(request, monkeypatch, tmp_path):
+    """Where the test's cell is an example, the harness reads a copy of the
+    benchmark with the example added."""
+    callspec = getattr(request.node, "callspec", None)
+    cell = callspec.params.get("cell") if callspec else None
+    if cell in EXAMPLES:
+        copy = copy_with(EXAMPLES[cell], tmp_path / "bench")
+        monkeypatch.setattr(manifest, "HERE", copy / "benchmark")
+        monkeypatch.setattr(manifest, "BENCHMARK", copy / "BENCHMARK.json")
 
 
 @pytest.fixture(autouse=True)
@@ -131,3 +156,34 @@ def test_missing_output_fails_the_job(capsys, monkeypatch, cell):
         monkeypatch.setattr(module, "write_gso_output", skip_step_10)
     result = run_cell(capsys, cell)[-1]
     assert not result["correct"] and result["failed"] == result["attempted"] >= 1
+
+
+@pytest.mark.parametrize("cell", ANM_CELLS)
+def test_receptor_modes_left_out_is_not_correct(capsys, monkeypatch, cell):
+    """The receptor's ANM coefficients zeroed in the energy the program
+    scores with."""
+    from lightdock_tpu_torch.engine import runner
+
+    original = runner.batch_energy_chunked
+
+    def rigid_receptor(p, t, q, a_rec, a_lig, chunk, moved=None, prev_scoring=None):
+        return original(p, t, q, torch.zeros_like(a_rec), a_lig, chunk)
+
+    monkeypatch.setattr(runner, "batch_energy_chunked", rigid_receptor)
+    assert not run_cell(capsys, cell)[-1]["correct"]
+
+
+@pytest.mark.parametrize("cell", ANM_CELLS)
+def test_anm_move_skipped_is_not_correct(capsys, monkeypatch, cell):
+    """The GSO move keeps every glowworm's ANM coefficients."""
+    from lightdock_tpu_torch.engine import gso
+
+    original = gso.gso_move
+
+    def no_anm(params, state, scoring, randoms):
+        new, out = original(params, state, scoring, randoms)
+        keep = {"a_rec": state.a_rec, "a_lig": state.a_lig}
+        return new._replace(**keep), out._replace(**keep)
+
+    monkeypatch.setattr(gso, "gso_move", no_anm)
+    assert not run_cell(capsys, cell)[-1]["correct"]

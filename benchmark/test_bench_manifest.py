@@ -1,12 +1,16 @@
 """The benchmark's files against BENCHMARK.json and the contract's rules,
-discovery by files alone, the generator, and the imports.
+discovery by files alone (the example DNA + ANM cell added as new files
+and run), the generator (its inputs for the existing configurations byte
+for byte as before, and its DNA and ANM inputs), and the imports.
 
     python -m pytest benchmark/test_bench_manifest.py -q
 """
 
 import ast
+import hashlib
 import json
 import pathlib
+import os
 import re
 import shutil
 import subprocess
@@ -22,11 +26,18 @@ sys.path.insert(0, str(HERE))
 from ldbench import manifest  # noqa: E402
 from ldbench.check import NUMBERS  # noqa: E402
 from ldbench.inputs import Complex  # noqa: E402
+from ldbench.methods import NUCLEOTIDES  # noqa: E402
+from examples.add import add, copy_of, strip  # noqa: E402
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 METRICS = {m["name"]: m for m in BENCH["end_to_end"] + BENCH["per_layer"]}
+EXAMPLE = HERE / "examples" / "1azp-dna-anm.glob32.json"
+# The program: this tree's root, then whatever the caller's path holds (a
+# copy of the benchmark alone finds the program there).
+ENV = dict(os.environ, OMP_NUM_THREADS="1",
+           PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
 
 
 def reported(cell, metric):
@@ -142,6 +153,85 @@ def test_new_files_are_found(tmp_path):
                          text=True, check=True).stdout.split()
     assert out[:4] == ["2", "1.0", "True", "new_metric"]
     assert "new_metric" not in out[4].split(",")
+
+
+def files(root):
+    return {p.relative_to(root): p.read_bytes() for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_example_cell_is_new_files_alone(tmp_path):
+    """The benchmark without the example DNA + ANM cell's files and entries,
+    and the same with the example added, differ by exactly its two new files
+    and entries appended to BENCHMARK.json, whether the tree holds the cell
+    or not; the copy's harness finds it and runs it whole on the CPU at a
+    small size, correct."""
+    base = copy_of(tmp_path / "base")
+    strip(EXAMPLE, base)
+    copy = tmp_path / "copy"
+    shutil.copytree(base, copy)
+    add(EXAMPLE, copy)
+    old, new = files(base / "benchmark"), files(copy / "benchmark")
+    assert set(new) - set(old) == {pathlib.Path("configs/1azp-dna-anm.json"),
+                                   pathlib.Path("workloads/1azp-dna-anm.glob32.json")}
+    assert all(new[p] == old[p] for p in old)
+    was_bench = json.loads((base / "BENCHMARK.json").read_text())
+    bench = json.loads((copy / "BENCHMARK.json").read_text())
+    for key in ("command", "paths", "run_seconds"):
+        assert bench[key] == BENCH[key] == was_bench[key]
+    for kind in ("configs", "workloads"):
+        assert bench[kind][:len(was_bench[kind])] == was_bench[kind]
+        assert [e["name"] for e in bench[kind][len(was_bench[kind]):]] == [
+            e["name"] for e in json.loads(EXAMPLE.read_text())["benchmark"][kind]]
+    for kind in ("end_to_end", "per_layer"):
+        assert len(bench[kind]) == len(was_bench[kind])
+        for was, now in zip(was_bench[kind], bench[kind]):
+            assert {k: v for k, v in now.items() if k != "workloads"} == {
+                k: v for k, v in was.items() if k != "workloads"}
+            assert now.get("workloads", [])[:len(was.get("workloads", []))] == was.get(
+                "workloads", [])
+    small = {"config": {"receptor_atoms": 300, "ligand_atoms": 90, "glowworms": 30,
+                        "steps": 20, "swarm_centres": 3},
+             "traffic": {"swarms": 3}, "min_job_s": 0.3,
+             "check": {"jobs": 2, "swarms": 3, "segments": 3, "score_snapshots": 2}}
+    out = subprocess.run(
+        [sys.executable, str(copy / "benchmark" / "run.py"), "--workload",
+         "1azp-dna-anm.glob32", "--seed", str(2 ** 31 + 23), "--seconds", "1", "--trace", "0",
+         "--platform", "cpu", "--override", json.dumps(small)],
+        capture_output=True, text=True, cwd=tmp_path, timeout=600,
+        env=ENV)
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["correct"] and result["failed"] == 0, out.stderr[-3000:]
+    assert set(result["metrics"]) == {"poses_per_s", "setup_s"}
+
+
+def test_example_tests_pass_on_a_checkout_that_holds_the_cell(tmp_path):
+    """A checkout to which ``examples/add.py`` has added the cell, as a later
+    change would, passes the example's own tests; adding it again changes
+    nothing."""
+    checkout = copy_of(tmp_path / "checkout")
+    add_py = [sys.executable, str(checkout / "benchmark" / "examples" / "add.py"),
+              str(checkout / "benchmark" / "examples" / EXAMPLE.name), str(checkout)]
+    written = subprocess.run(add_py, capture_output=True, text=True, check=True).stdout.split()
+    assert sorted(pathlib.Path(p).name for p in written) == [
+        "1azp-dna-anm.glob32.json", "1azp-dna-anm.json"]
+    before = files(checkout)
+    assert subprocess.run(add_py, capture_output=True, text=True,
+                          check=True).stdout.split() == []
+    assert files(checkout) == before
+    bench, cell = checkout / "benchmark", "1azp-dna-anm.glob32"
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         f"{bench}/test_bench_manifest.py::test_names_and_units",
+         f"{bench}/test_bench_manifest.py::test_cell_files[{cell}]",
+         f"{bench}/test_bench_manifest.py::test_example_cell_is_new_files_alone",
+         f"{bench}/test_bench_faults.py::test_sound_run_is_correct[{cell}]",
+         f"{bench}/test_bench_faults.py::test_control_is_not_correct[{cell}]",
+         f"{bench}/test_bench_faults.py::test_receptor_modes_left_out_is_not_correct[{cell}]"],
+        capture_output=True, text=True, cwd=checkout, timeout=900, env=ENV)
+    assert out.returncode == 0, out.stdout[-3000:]
+    assert "6 passed" in out.stdout, out.stdout[-3000:]
 
 
 def small_config():
@@ -278,3 +368,98 @@ def test_contract_limits():
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
         assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
         assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+
+
+# SHA-256 of the inputs each configuration gave at seed 2 ** 31 + 101 before
+# the generator took DNA and ANM: the files of the complex, and the
+# positions files of jobs 0, 7 and the warm-up job (10 ** 9), two swarms
+# each, joined in order.
+INPUTS_BEFORE = {
+    "1k4c-dfire-membrane": {
+        "lightdock_rec.pdb": "5c175fb09e9018d95d9dd4c672e3d0e0d8d11cb9af75d98f7a21be509629e222",
+        "lightdock_lig.pdb": "485c023d412e0ca42d836c0196d8b157678ccfb8e763e9c6ed99b9fc0d2b9f15",
+        "setup.json": "4812a3ad62497ca3cead43acad378e53601e44e97d3c0ed46fa8f2334808b095",
+        "data/DCparams": "7eac336186281e01088faeb6f9e59e4577e6dc365ee49d1249967c727c1e1f12",
+        0: "fd892e64f0875bd7e57c0d61264248863de084c202c5381f00f7e4ce7e38c254",
+        7: "63c1d3370c2ef5a3f105bf61068cd94d5948119a21ac8625e5ba627d8026c12c",
+        10 ** 9: "906fab5a921670262ed2ff7d7b15605bf7e083b4980b3908979d3697044423db",
+    },
+    "1ppe-dfire-rigid": {
+        "lightdock_rec.pdb": "577c48c360517ae96d8db3531c133ba5e4b349abc2fdf221f03a39a521f31af8",
+        "lightdock_lig.pdb": "3f7e3acacb0229f5f12468a39eaab2c7bee05a300d9638d8d4eaa3d6eea3773a",
+        "setup.json": "4812a3ad62497ca3cead43acad378e53601e44e97d3c0ed46fa8f2334808b095",
+        "data/DCparams": "7eac336186281e01088faeb6f9e59e4577e6dc365ee49d1249967c727c1e1f12",
+        0: "d2364211ad88cfeba060b751f7baf8d81f553b0f7e1b66c9bf467282b5eeacf2",
+        7: "87ae02c3a45c538d5300acd16c72213e290797506558e63c75ac1bacb716bbee",
+        10 ** 9: "a6a852cb280a7efe53b9ec589d6cee7ed95f0bd5ceefc1de12b185f7e1157454",
+    },
+}
+
+
+@pytest.mark.parametrize("name", sorted(INPUTS_BEFORE))
+def test_inputs_are_unchanged(tmp_path, name):
+    """Each existing configuration at full size gives the bytes it gave
+    before the generator took DNA and ANM."""
+    cx = Complex(manifest.load("configs", name), 2 ** 31 + 101, tmp_path / "cx")
+    found = {}
+    for key, want in INPUTS_BEFORE[name].items():
+        if isinstance(key, str):
+            data = (cx.root / key).read_bytes()
+        else:
+            data = b"".join(p.read_bytes() for p in cx.write_job(key, 2, tmp_path / str(key)))
+        found[key] = hashlib.sha256(data).hexdigest()
+    assert found == INPUTS_BEFORE[name]
+    assert not list(cx.root.glob("*_nm.npy"))
+
+
+def test_dna_anm_inputs(tmp_path):
+    """A DNA configuration with modes: nucleotides on the ligand, no DFIRE
+    table, setup.json naming the modes, modes smooth, free of the rigid
+    motions and orthonormal, and positions whose pose columns are those of
+    the rigid DFIRE configuration of the same seed and sizes."""
+    config = dict(json.loads(EXAMPLE.read_text())["files"]["configs/1azp-dna-anm.json"],
+                  receptor_atoms=500, ligand_atoms=200, glowworms=12)
+    cx = Complex(config, 2 ** 31 + 7, tmp_path / "dna")
+    rigid = Complex(dict(manifest.load("configs", "1ppe-dfire-rigid"), receptor_atoms=500,
+                         ligand_atoms=200, glowworms=12), 2 ** 31 + 7, tmp_path / "dfire")
+    setup = json.loads(cx.setup.read_text())
+    assert (setup["use_anm"], setup["anm_rec"], setup["anm_lig"]) == (True, 10, 10)
+    assert not (cx.root / "data" / "DCparams").exists()
+    lig = (cx.root / "lightdock_lig.pdb").read_text().splitlines()[:-1]
+    assert {line[17:20].strip() for line in lig} <= set(NUCLEOTIDES)
+    assert np.array_equal(cx.rec, rigid.rec) and np.array_equal(cx.centres, rigid.centres)
+    for name, xyz in (("rec", cx.rec), ("lig", cx.lig)):
+        modes = np.load(cx.root / f"{name}_nm.npy")
+        assert modes.shape == (10, len(xyz), 3)
+        flat = modes.reshape(10, -1)
+        assert np.allclose(flat @ flat.T, np.eye(10), atol=1e-12)
+        x = xyz - xyz.mean(axis=0)
+        assert np.abs(modes.sum(axis=1)).max() < 1e-9
+        assert max(abs((np.cross(np.eye(3)[c], x) * m).sum()) for m in modes
+                   for c in range(3)) < 1e-9
+        # Smooth: atoms within 3 A move alike, far more than atoms 25 A apart.
+        d = np.linalg.norm(xyz[:, None] - xyz[None], axis=-1)
+        step = np.linalg.norm(modes[0][:, None] - modes[0][None], axis=-1)
+        assert step[(d > 0) & (d < 3)].mean() < 0.3 * step[d > 25].mean()
+    for job in (0, 5):
+        for a, b in zip(cx.positions(job, 3), rigid.positions(job, 3)):
+            assert a.shape == (12, 27) and np.array_equal(a[:, :7], b)
+        assert not np.array_equal(cx.positions(job, 1)[0][:, 7:],
+                                  cx.positions(job + 1, 1)[0][:, 7:])
+    coefficients = np.concatenate([p[:, 7:] for p in cx.positions(2, 20)])
+    assert abs(coefficients.mean()) < 0.1 and abs(coefficients.std() - 1) < 0.1
+
+
+def test_method_without_a_reference_is_refused(tmp_path, monkeypatch):
+    """A configuration whose method the reference does not score is
+    refused at set-up, before any input is made or job run."""
+    sys.path.insert(1, str(ROOT))
+    import run
+
+    monkeypatch.setattr(run, "Complex", lambda *a: pytest.fail("inputs made"))
+    override = {"config": {"method": "pydock"}}
+    with pytest.raises(ValueError, match="no reference scorer for method 'pydock'"):
+        run.main(["--workload", "1ppe-dfire-rigid.swarm1", "--seed", "1", "--seconds", "1",
+                  "--platform", "cpu", "--override", json.dumps(override)])
+    with pytest.raises(ValueError, match="no reference scorer for method 'pydock'"):
+        Complex(dict(manifest.load("configs", "1ppe-dfire-rigid"), method="pydock"), 1, tmp_path)
