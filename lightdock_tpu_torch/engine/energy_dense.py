@@ -18,6 +18,7 @@ import torch
 
 from .. import constants as C
 from ..ops import quaternion as qt
+from ..utils import metrics
 from .params import BatchScoringParams
 
 IFACE2 = ((C.INTERFACE_CUTOFF + 1.0) / 2.0) ** 2
@@ -47,14 +48,19 @@ def mode_sum(a, nmodes):
 
 
 def batch_pose_coords(p: BatchScoringParams, t, q, a_rec, a_lig):
-    """Transformed coordinates: (rec (G, Nr, 3), lig (G, Nl, 3))."""
+    """Transformed coordinates: (rec (G, Nr, 3), lig (G, Nl, 3)); the
+    mode sums inside the span ``anm_pose`` where a side has modes."""
     rot = qt.rotation_matrix(q)
     lig = rotate_translate(rot, p.lig_coords, t).transpose(1, 2)
-    if p.use_anm and p.lig_nmodes.shape[0] > 0:
-        lig = lig + mode_sum(a_lig, p.lig_nmodes)
     rec = p.rec_coords[None].expand((t.shape[0],) + tuple(p.rec_coords.shape))
-    if p.use_anm and p.rec_nmodes.shape[0] > 0:
-        rec = p.rec_coords[None] + mode_sum(a_rec, p.rec_nmodes)
+    lig_anm = p.use_anm and p.lig_nmodes.shape[0] > 0
+    rec_anm = p.use_anm and p.rec_nmodes.shape[0] > 0
+    if lig_anm or rec_anm:
+        with metrics.span("anm_pose"):
+            if lig_anm:
+                lig = lig + mode_sum(a_lig, p.lig_nmodes)
+            if rec_anm:
+                rec = p.rec_coords[None] + mode_sum(a_rec, p.rec_nmodes)
     return rec, lig
 
 

@@ -4,13 +4,14 @@ Port of ``lightdock_tpu/engine/energy_pallas.py`` ``make_pallas_energy_fn``
 (its ``energy_fn`` and ``_compute``), ``resolve_kernel`` and
 ``pose_chunked_energy`` for all three methods, rigid or with ANM:
 rotation, the re-centred ligand (G, 3, Nl) with its ANM displacement, the
-receptor (1, Nr, 3), or (G, Nr, 3) with receptor ANM, the box cull with
-ANM slack at the method's energy, interface and (v2) near cutoffs, sub-box
-to tile coarsening and the moved gate (``ops.cull.cull_tile_bits``: one
-kernel on the card, which also fills the counters ``cull_checked`` and
-``cull_kept`` while a recorder is active), the moved-first + Morton pose
-order and its inverse, then the kernel, the affine finish and the
-restraint bias.
+receptor (1, Nr, 3), or (G, Nr, 3) with receptor ANM (the mode sums and
+their slack inside the span ``anm_pose`` while a recorder is active, where
+a side has modes), the box cull with ANM slack at the method's energy,
+interface and (v2) near cutoffs, sub-box to tile coarsening and the moved
+gate (``ops.cull.cull_tile_bits``: one kernel on the card, which also
+fills the counters ``cull_checked`` and ``cull_kept`` while a recorder is
+active), the moved-first + Morton pose order and its inverse, then the
+kernel, the affine finish and the restraint bias.
 
 Two kernel generations, as in JAX.  'v2' ORs the energy and near bits over
 each 16-pose chunk and runs ``ops.dfire_pairs`` K1 or
@@ -241,16 +242,20 @@ def make_kernel_energy_fn(params: BatchScoringParams, device,
         g = t.shape[0]
         rot = qt.rotation_matrix(q)
         lig = rotate_translate(rot, p.lig_coords, t - center[None, :])  # (G, 3, Nl)
-        if lig_anm:
-            lig = lig + mode_sum(a_lig, p.lig_nmodes).transpose(1, 2)
         rec = (p.rec_coords - center[None, :])[None]                     # (1, Nr, 3)
-        if rec_anm:
-            rec = rec + mode_sum(a_rec, p.rec_nmodes)                    # (G, Nr, 3)
+        slack = None
+        if lig_anm or rec_anm:
+            with metrics.span("anm_pose"):
+                if lig_anm:
+                    lig = lig + mode_sum(a_lig, p.lig_nmodes).transpose(1, 2)
+                if rec_anm:
+                    rec = rec + mode_sum(a_rec, p.rec_nmodes)            # (G, Nr, 3)
+                if cull:
+                    slack = pose_slack(a_rec, rec_bounds) if rec_anm else None
+                    if lig_anm:
+                        ls = pose_slack(a_lig, lig_bounds)
+                        slack = ls if slack is None else slack + ls
         if cull:
-            slack = pose_slack(a_rec, rec_bounds) if rec_anm else None
-            if lig_anm:
-                ls = pose_slack(a_lig, lig_bounds)
-                slack = ls if slack is None else slack + ls
             bits, counts = cull_tile_bits(rc, rh, lc, lh, t, rot, slack, cuts, (rg, lg),
                                           chunked, moved, count=metrics.recording())
             if counts is not None:
