@@ -234,13 +234,14 @@ the float64 host parity engine:
     energy mode ('auto'), for the default system (the 1ppe stand-in and the
     32-swarm farm on stderr), ``--system 1azp`` and ``--system 1k4c``: the
     last line ``bench.py``'s keys and ``device`` naming the card, a
-    positive value, the mode on stderr ``pick_energy_mode``'s (for 200
-    poses a call, 6,400 in the farm), and where it is 'kernel' the launches
-    of the timed runs (K1 500 and the farm's 50, K3 500, K2 500, no other
-    kernel's); then ``--crossover`` at three points whose measured lead lies
-    outside the spread between runs (one swarm at 1ppe, the kernel's, and at
-    1czy DNA, dense's; a 32-swarm farm at 1ppe r200, the kernel's), printing
-    each point's line and the table: the bench's pick is
+    positive value, the mode on stderr ``pick_energy_mode``'s (for one
+    swarm's replayed steps, and 6,400 poses a call in the farm), and where
+    it is 'kernel' the launches of the timed runs (K1 500 and the farm's
+    50, K3 500, K2 500, no other kernel's); then ``--crossover`` at four
+    points whose measured lead lies outside the spread between runs (one
+    swarm, replayed, at 1ppe and at 1czy DNA, the kernel's; a 2-swarm farm
+    at 1czy DNA, dense's; a 32-swarm farm at 1ppe r200, the kernel's),
+    printing each point's line and the table: the bench's pick is
     ``pick_energy_mode``'s and lost by no more than 1.2x there.  The whole
     map is ``bench --crossover``'s, on demand (``engine.runner``).
 27. runs the float64 host parity engine: ``HostScorer`` on the card
@@ -372,7 +373,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device"}
 BENCH_KERNELS = {"1ppe": "dfire_pairs", "1azp": "elec_vdw_pairs",
                  "1k4c": "dfire_pairs_worklist"}
 BENCH_TIMEOUT = 600
-BENCH_CROSSOVERS = ((1, ("1ppe", "1czy dna")), (32, ("1ppe r200",)))
+BENCH_CROSSOVERS = ((1, ("1ppe", "1czy dna")), (2, ("1czy dna",)), (32, ("1ppe r200",)))
 # float64 operations a second outside the tensor cores (NVIDIA's H100 SXM
 # data sheet), and the clash count's float64 operations a receptor-ligand
 # pair (3 differences, 3 squares, 2 adds, 1 compare): its bound.
@@ -617,6 +618,7 @@ def drive(path, counters, phase, steps=STEPS):
         with np.load(pathlib.Path(out_dir) / "gso_1.out.npz") as sidecar:
             step1 = sidecar["scoring"]
         cols = snapshot_columns(pathlib.Path(out_dir) / f"gso_{steps}.out")
+    runner.release()
     ours = launches[path.kernel.__name__]
     say(f"phase {phase}: {path.label}: {steps} steps in {run_s:.3f} s (first run, "
         f"with snapshots); kernel launches {launches}, cull_tile_bits {culls}; "
@@ -758,6 +760,7 @@ def timing(path, main, card, phases, plain_reps=10):
         f"{max(step_ms):.3f} ms per step")
     say(f"phase {phases[1]}: {path.label}: "
         + profile_steps(timer.reset, timer.run, card, path.kernel_names))
+    timer.release()
     return kernel_ms, plain_ms
 
 
@@ -3142,7 +3145,7 @@ def bench_phase(card):
         check(last["value"] > 0 and last["vs_baseline"] > 0, f"{label}: {last}")
         check(name in last["device"], f"{label}: device {last['device']!r} is not {name}")
         params, positions, _, _ = bench.system(system)
-        picked = pick_energy_mode(params, "cuda", positions.shape[0])
+        picked = pick_energy_mode(params, "cuda", positions.shape[0], replayed=True)
         mode = stderr_value(err, "energy mode:", label)
         check(mode == f"{picked} (requested auto)",
               f"{label}: energy mode {mode!r}, pick_energy_mode {picked!r}")
@@ -3190,7 +3193,7 @@ def bench_phase(card):
             rec_nmodes=np.zeros((row["anm_modes"], 0, 3)),
             rec_coords=np.zeros((row["rec_atoms"], 3)),
             lig_coords=np.zeros((row["lig_atoms"], 3)))
-        pick = pick_energy_mode(shape, "cuda", row["poses"])
+        pick = pick_energy_mode(shape, "cuda", row["poses"], replayed=row["swarms"] == 1)
         check(row["pick"] == pick, f"crossover {row['point']}: pick {row['pick']} "
               f"in the bench, {pick} here")
         check(row["pick_lost_by"] <= CROSSOVER_TIE,

@@ -276,7 +276,8 @@ def crossover_setup(point, device, swarms) -> dict:
             "lig_atoms": params.lig_coords.shape[0], "pairs": n_pairs,
             "rec_anm": num_anm > 0, "anm_modes": num_anm, "swarms": swarms,
             "poses": poses, "steps": steps, "dense_chunk": chunk,
-            "pick": pick_energy_mode(params, device, poses), "runners": runners,
+            "pick": pick_energy_mode(params, device, poses, replayed=swarms == 1),
+            "runners": runners,
             "times": {mode: [] for mode in runners}}
 
 

@@ -18,8 +18,10 @@ card it raises (``engine.runner.cuda_device``) and never carries on on the
 CPU.  The flags are the JAX command line's, mapped so:
 
 - ``--energy-mode``: ``auto`` (``engine.runner.pick_energy_mode``: on
-  the card ``kernel`` or ``dense`` by the method, receptor ANM and pair
-  count, from a crossover map measured on an H100; ``dense`` on the CPU),
+  the card ``kernel`` for one swarm, whose steps are replayed from CUDA
+  graphs, and for the glob ``kernel`` or ``dense`` by the method,
+  receptor ANM and pair count, from a crossover map measured on an H100;
+  ``dense`` on the CPU),
   ``kernel``, ``kernel_v1``, ``dense``; JAX's ``pallas`` and ``xla`` are
   taken as ``kernel`` and ``dense``.
 - ``--energy-chunk``: the dense mode takes :func:`pick_energy_chunk`'s

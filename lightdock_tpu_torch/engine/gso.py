@@ -6,12 +6,14 @@ luciferin, the (G, G) neighbour search, the masked-cumsum roulette with
 its float-safety net, the moves toward the pre-move snapshot, and the
 vision update.  ``run_swarm`` is a Python loop over steps.
 
-Scoring and movement are split (:func:`gso_move`) so that S stacked swarms
-(leading axis S on every state field) take one step with one energy call
-over all S x G poses and one set of tensor ops for all the moves
-(:func:`swarms_step`, port of ``lightdock_tpu/parallel/farm.py``
-``make_farm_step``): ``torch.func.vmap`` of :func:`gso_move` over the swarm
-axis, where JAX ran ``jax.vmap``.
+Scoring and movement are split (:func:`gso_energy`, :func:`gso_move`) so
+that S stacked swarms (leading axis S on every state field) take one step
+with one energy call over all S x G poses and one set of tensor ops for
+all the moves (:func:`swarms_step`, port of
+``lightdock_tpu/parallel/farm.py`` ``make_farm_step``):
+``torch.func.vmap`` of :func:`gso_move` over the swarm axis, where JAX ran
+``jax.vmap``; and so that ``engine.runner`` captures each part in a CUDA
+graph of its own.
 """
 
 from __future__ import annotations
@@ -81,15 +83,21 @@ def gso_step(params, state: SwarmState, randoms: torch.Tensor, energy_fn):
     (the dense ``energy_dense.batch_energy`` also fits).  Spans ``energy``
     and ``move``; the counter ``poses_scored`` adds the poses the energy
     is asked to score, as the mask itself (``utils.metrics.count``)."""
-    # 1. Scoring: unmoved glowworms keep their score.
     with metrics.span("energy"):
-        moved_prev = state.num_neighbors > 0
-        if metrics.recording():
-            metrics.count("poses_scored", moved_prev)
-        scoring = energy_fn(params, state.t, state.q, state.a_rec, state.a_lig,
-                            moved=moved_prev, prev_scoring=state.scoring)
+        scoring = gso_energy(params, state, energy_fn)
     with metrics.span("move"):
         return gso_move(params, state, scoring.to(state.t.dtype), randoms)
+
+
+def gso_energy(params, state: SwarmState, energy_fn):
+    """The first part of a GSO iteration, the step's (G,) scores: the
+    glowworms that moved last phase are scored, the others keep their
+    score.  Counts ``poses_scored`` while a recorder is active."""
+    moved_prev = state.num_neighbors > 0
+    if metrics.recording():
+        metrics.count("poses_scored", moved_prev)
+    return energy_fn(params, state.t, state.q, state.a_rec, state.a_lig,
+                     moved=moved_prev, prev_scoring=state.scoring)
 
 
 def gso_move(params, state: SwarmState, scoring: torch.Tensor,

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, counts_launches
 from .dfire_pairs import POSE_BLOCK
 
 
@@ -97,6 +97,7 @@ def cull_tile_bits_plain(rec_centers, rec_half, lig_centers, lig_half, t, rot,
     return [chunk_or(b) if c else b for b, c in zip(bits, chunked)]
 
 
+@counts_launches
 def cull_tile_bits(rec_centers, rec_half, lig_centers, lig_half, t, rot, slack,
                    cutoffs, groups, chunked, moved=None, count=False):
     """The box cull's tile bits for the pair kernels: ``(bits, counts)``.
@@ -129,9 +130,6 @@ def cull_tile_bits(rec_centers, rec_half, lig_centers, lig_half, t, rot, slack,
                   cutoffs, groups, chunked, moved, count)
     cull_tile_bits.launches += 1
     return out
-
-
-cull_tile_bits.launches = 0
 
 
 def cut2_up(cutoffs):

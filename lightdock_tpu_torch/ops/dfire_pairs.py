@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import constants as C
-from . import _build
+from . import _build, counts_launches
 from .tiling import dfire_far_split, dfire_live_channels
 
 POSE_BLOCK = 16     # poses per chunk (the kernel's kPoses)
@@ -380,6 +380,7 @@ def _dispatch(wrapper, plain, use_worklist, args, kwargs):
     return out
 
 
+@counts_launches
 def dfire_pairs(rec_all, lig_all, tables: DfireTables, active_chunks,
                 iface_active, *, r_tile: int, l_tile: int,
                 need_iface: bool = True, near_chunks=None):
@@ -394,6 +395,7 @@ def dfire_pairs(rec_all, lig_all, tables: DfireTables, active_chunks,
                           near_chunks=near_chunks))
 
 
+@counts_launches
 def dfire_pairs_worklist(rec_all, lig_all, tables: DfireTables, active_chunks,
                          iface_active, *, r_tile: int, l_tile: int,
                          need_iface: bool = True, near_chunks=None):
@@ -408,7 +410,3 @@ def dfire_pairs_worklist(rec_all, lig_all, tables: DfireTables, active_chunks,
                      (rec_all, lig_all, tables, active_chunks, iface_active),
                      dict(r_tile=r_tile, l_tile=l_tile, need_iface=need_iface,
                           near_chunks=near_chunks))
-
-
-dfire_pairs.launches = 0
-dfire_pairs_worklist.launches = 0

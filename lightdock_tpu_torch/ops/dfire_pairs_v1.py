@@ -50,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import constants as C
-from . import _build
+from . import _build, counts_launches
 from .dfire_pairs import IFACE2, MAX_R_TILE, slot_bins
 from .tiling import check_pose_bits, expand_pose_bits, tile_sums
 
@@ -197,6 +197,7 @@ def _launch(rec_all, lig_all, dq, thresholds, active, iface_active, r_tile,
     return raw, ifr, ifl
 
 
+@counts_launches
 def dfire_pairs_v1(rec_all, lig_all, dq, thresholds, active, iface_active, *,
                    r_tile: int, l_tile: int, need_iface: bool = True):
     """K4: raw DFIRE step-form sums and interface flags (see the module
@@ -215,6 +216,3 @@ def dfire_pairs_v1(rec_all, lig_all, dq, thresholds, active, iface_active, *,
     if dev != "cuda":
         raise ValueError(f"dfire_pairs_v1 runs on cpu or cuda, not {dev}")
     return _launch(*args, r_tile, l_tile, need_iface)
-
-
-dfire_pairs_v1.launches = 0

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import constants as C
-from . import _build
+from . import _build, counts_launches
 from .dfire_pairs import POSE_BLOCK, check_bits, pad_inputs
 
 ELEC_SCALE = C.FACTOR / C.EPSILON
@@ -213,6 +213,7 @@ def _launch(rec_all, lig_all, atoms, active_chunks, iface_active, r_tile,
     return raw[:g], ifr[:g], ifl[:g]
 
 
+@counts_launches
 def elec_vdw_pairs(rec_all, lig_all, ele_rec, ele_lig, vdw_c_rec, vdw_c_lig,
                    vdw_r_rec, vdw_r_lig, active_chunks, iface_active, *,
                    r_tile: int, l_tile: int, need_iface: bool = True,
@@ -232,6 +233,3 @@ def elec_vdw_pairs(rec_all, lig_all, ele_rec, ele_lig, vdw_c_rec, vdw_c_lig,
         raise ValueError(f"elec_vdw_pairs runs on cpu or cuda, not {dev}")
     return _launch(rec_all, lig_all, atoms, active_chunks, iface_active,
                    r_tile, l_tile, need_iface, near_chunks)
-
-
-elec_vdw_pairs.launches = 0

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import constants as C
-from . import _build
+from . import _build, counts_launches
 from .dfire_pairs import pad_inputs
 from .elec_vdw_pairs import ELEC_SCALE, _pad_atoms, check_tile
 from .tiling import check_pose_bits, expand_pose_bits, tile_sums
@@ -173,6 +173,7 @@ def _launch(rec_all, lig_all, atoms, active, iface_active, r_tile, l_tile,
     return raw[:g], ifr[:g], ifl[:g]
 
 
+@counts_launches
 def elec_vdw_pairs_v1(rec_all, lig_all, ele_rec, ele_lig, vdw_c_rec,
                       vdw_c_lig, vdw_r_rec, vdw_r_lig, active, iface_active,
                       *, r_tile: int, l_tile: int, need_iface: bool = True):
@@ -192,6 +193,3 @@ def elec_vdw_pairs_v1(rec_all, lig_all, ele_rec, ele_lig, vdw_c_rec,
         raise ValueError(f"elec_vdw_pairs_v1 runs on cpu or cuda, not {dev}")
     return _launch(rec_all, lig_all, atoms, active, iface_active, r_tile,
                    l_tile, need_iface)
-
-
-elec_vdw_pairs_v1.launches = 0

@@ -40,7 +40,7 @@ import functools
 import torch
 
 from .. import constants as C
-from . import _build
+from . import _build, counts_launches
 
 NSLOT = C.DFIRE_EFFECTIVE_BINS   # slots of the arithmetic binning (0.5 A)
 CUTOFF2 = C.DFIRE_DIST_CUTOFF2   # the probes' d2 mask
@@ -358,6 +358,7 @@ def _dispatch(name, ref, plain, launch):
     return plain()
 
 
+@counts_launches
 def select_reps(d2, tab, thresholds, mode: str, reps: int):
     """P1: for each p of d2 (P, R, L), ``sum over i < reps of the sum over
     (r, l) of select_mode(d2 + i 1e-6)[r, l] [d2 + i 1e-6 <= 225]``, with
@@ -393,6 +394,7 @@ def select_reps(d2, tab, thresholds, mode: str, reps: int):
                      lambda: select_reps_plain(d2, tab, thresholds, mode, reps), launch)
 
 
+@counts_launches
 def receptor_loop(lig, rec, tab, thresholds, mode: str):
     """P2, P3: for each pose p and ligand atom l of lig (P, 3, L), the sum
     over receptor atoms r of rec (R, 3), in order, of
@@ -424,6 +426,7 @@ def receptor_loop(lig, rec, tab, thresholds, mode: str):
                      lambda: receptor_loop_plain(lig, rec, tab, thresholds, mode), launch)
 
 
+@counts_launches
 def gather_form(form: str, x=None, tab=None, idx=None, rec=None, *, thresholds=(),
                 reps: int = 1, row: int = 0):
     """P4-P6: one (P, L) float32 expression per ``form`` (the table of
@@ -470,8 +473,3 @@ def _gather_form_launch(form, x, tab, idx, rec, thresholds, reps, row):
     _run("gather_form", ref.get_device(), lambda s: fn(*args, s))
     gather_form.launches += 1
     return out
-
-
-select_reps.launches = 0
-receptor_loop.launches = 0
-gather_form.launches = 0

@@ -128,6 +128,22 @@ def count(name: str, value) -> None:
 
 
 @contextlib.contextmanager
+def capture():
+    """Keep what the block records apart from the active recorder: a fresh
+    recorder takes its spans and counters (yielded, to be read by the
+    caller), or none is active where none keeps any (yields None).  For
+    code captured into a CUDA graph, whose Python runs once at capture:
+    what it counts there is each replay's, not the capture's."""
+    global _active
+    outer = _active
+    _active = Recorder() if outer is not None and outer.store else None
+    try:
+        yield _active
+    finally:
+        _active = outer
+
+
+@contextlib.contextmanager
 def record(store: bool = True, profile: bool = False):
     """Activate a recorder for the block (one a process: inside another
     block the active one is reused); yields it."""

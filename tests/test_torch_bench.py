@@ -47,15 +47,17 @@ def _shape(method, rec_anm, n_rec, n_lig, modes=10):
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
-@pytest.mark.parametrize("point", CROSSOVER_MAP, ids=[f"{m[0]} x{m[5]}" for m in CROSSOVER_MAP])
+@pytest.mark.parametrize("point", CROSSOVER_MAP,
+                         ids=[f"{m[0]} x{m[5]}{' replayed' * m[6]}" for m in CROSSOVER_MAP])
 def test_pick_energy_mode(point, device):
-    """On the card, at every point of the measured map, a mode that lost
-    by no more than the tie (1.2x, the spread between runs) in every run
-    there, where either mode did; off it 'dense', as JAX's rule gives
-    'xla' off a TPU.  No CUDA state is touched."""
-    _, method, rec_anm, n_rec, n_lig, poses, lowest, highest = point
+    """On the card, at every point of the measured map, op by op or with
+    the kernel mode's steps replayed, a mode that lost by no more than the
+    tie (1.2x, the spread between runs) in every run there, where either
+    mode did; off it 'dense', as JAX's rule gives 'xla' off a TPU.  No
+    CUDA state is touched."""
+    _, method, rec_anm, n_rec, n_lig, poses, replayed, lowest, highest = point
     shape = _shape(method, rec_anm, n_rec, n_lig)
-    picked = pick_energy_mode(shape, device, poses)
+    picked = pick_energy_mode(shape, device, poses, replayed)
     if device == "cpu":
         assert picked == "dense" and gso_jax.pick_energy_mode(shape) == "xla"
         return
@@ -83,28 +85,32 @@ def test_pick_energy_mode_reads_params():
     assert pick_energy_mode(mid, "cuda", 200) == "kernel"
     mid.method = "pydock"
     assert pick_energy_mode(mid, "cuda", 200) == "dense"
+    # Steps replayed from CUDA graphs take the kernel at any size on the card.
+    for params in (rigid, anm, mid):
+        assert pick_energy_mode(params, "cuda", 200, replayed=True) == "kernel"
+        assert pick_energy_mode(params, "cpu", 200, replayed=True) == "dense"
 
 
 def test_auto_goes_through_the_rule(monkeypatch, caplog):
     """The runner and the farm resolve 'auto' through ``pick_energy_mode``
-    for their poses a call (G; S x G) and log the mode once; an explicit
-    mode is never changed."""
+    for their poses a call (G; S x G), the runner's steps as replayed, and
+    log the mode once; an explicit mode is never changed."""
     params, pos, _ = standin.toy_system(24, 16, 4)
     kw = dict(seed=1, use_anm=False, anm_rec=0, anm_lig=0, device="cpu")
     assert GsoTorchRunner(params, pos, energy_mode="auto", **kw).energy_mode == "dense"
     asked = []
     monkeypatch.setattr(runner_module, "pick_energy_mode",
-                        lambda p, d, n: asked.append(n) or "kernel")
+                        lambda p, d, n, replayed: asked.append((n, replayed)) or "kernel")
     with caplog.at_level(logging.INFO, "lightdock_tpu_torch.engine.runner"):
         one = GsoTorchRunner(params, pos, energy_mode="auto", **kw)
         farm = SwarmFarmRunner(params, [pos, pos, pos], [0, 1, 2], output_root=None, **kw)
-    assert asked == [4, 12]
+    assert asked == [(4, True), (12, False)]
     assert one.energy_mode == farm.energy_mode == "kernel"
     assert one.energy_fn.kernel.__name__ == farm.energy_fn.kernel.__name__ == "dfire_pairs"
     assert [r.message for r in caplog.records] == [
         f"{who}: energy mode kernel (auto, {n} poses a call)"
         for who, n in (("GsoTorchRunner", 4), ("SwarmFarmRunner", 12))]
-    monkeypatch.setattr(runner_module, "pick_energy_mode", lambda p, d, n: "dense")
+    monkeypatch.setattr(runner_module, "pick_energy_mode", lambda p, d, n, replayed: "dense")
     for mode in ("kernel", "kernel_v1"):
         steps, _, _ = standin.toy_system(24, 16, 4, dfire_mode="steps")
         assert GsoTorchRunner(steps, pos, energy_mode=mode, **kw).energy_mode == mode

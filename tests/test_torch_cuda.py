@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (DFIRE K1, K2 and K4, elec/vdw K3 and K5,
-and the three probe templates of P1-P6) against their plain versions, and
-the energy path and the float64 host engine on the card against the CPU.
+and the three probe templates of P1-P6) against their plain versions, the
+energy path and the float64 host engine on the card against the CPU, and
+the runner's steps replayed from CUDA graphs against the same steps op by
+op.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  Imports neither JAX nor
 the JAX package (the systems come from ``lightdock_tpu_torch.standin``),
@@ -18,7 +20,9 @@ from lightdock_tpu_torch.engine import energy_kernel  # noqa: E402
 from lightdock_tpu_torch.engine.energy_kernel import (  # noqa: E402
     kernel_params, make_kernel_energy_fn)
 from lightdock_tpu_torch import probes  # noqa: E402
+from lightdock_tpu_torch.engine.gso import SwarmState, run_swarm  # noqa: E402
 from lightdock_tpu_torch.engine.gso_host import GsoHostEngine  # noqa: E402
+from lightdock_tpu_torch.engine.runner import GsoTorchRunner  # noqa: E402
 from lightdock_tpu_torch.engine.params import torch_params  # noqa: E402
 from lightdock_tpu_torch.ops import cull  # noqa: E402
 from lightdock_tpu_torch.ops import dfire_pairs as dp  # noqa: E402
@@ -29,6 +33,7 @@ from lightdock_tpu_torch.ops import probes as ops_probes  # noqa: E402
 from lightdock_tpu_torch import standin  # noqa: E402
 from lightdock_tpu_torch.simulation import load_simulation  # noqa: E402
 from lightdock_tpu_torch.standin import toy_system  # noqa: E402
+from lightdock_tpu_torch.utils import metrics  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -246,6 +251,68 @@ def test_energy_fn_on_card_matches_cpu(cuda):
         out[str(dev)] = fn(tp, *(torch.as_tensor(x, dtype=torch.float32,
                                                  device=dev) for x in pose))
     torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-5, atol=5e-5)
+
+
+# Stand-ins at the one-swarm cells' sizes: 1ppe DFIRE rigid, 1azp DNA with
+# 10 + 10 ANM modes.
+GRAPHED = {"1ppe": dict(n_rec=1615, n_lig=221, g=200),
+           "1azp": dict(n_rec=1094, n_lig=506, g=200, num_anm=10, method="dna")}
+
+
+def _graphed_runner(dev, system, out_dir=None):
+    params, pos, num_anm = toy_system(**GRAPHED[system], seed=6)
+    return GsoTorchRunner(params, pos, seed=17, use_anm=num_anm > 0, anm_rec=num_anm,
+                          anm_lig=num_anm, output_directory=out_dir, device=dev)
+
+
+@pytest.mark.parametrize("system", sorted(GRAPHED))
+def test_graphed_runner_matches_eager(cuda, system, tmp_path):
+    """30 steps of ``GsoTorchRunner`` (one op by op, 29 replayed) against
+    the module-level ``run_swarm`` op by op from the same state and draws,
+    the final state and the last segment's outputs: 1ppe bit-equal, 1azp
+    within the kernels' 5e-5 and its neighbour counts equal.  Under a
+    recorder the counters add up to the eager run's, with 29
+    ``graph_steps``; each step launches the pair kernel and the cull."""
+    runner = _graphed_runner(cuda, system, str(tmp_path))
+    with metrics.record() as rec:
+        ref_state, ref_outs = run_swarm(runner.params, runner.state, runner._randoms(30),
+                                        runner.energy_fn)
+        torch.cuda.synchronize()
+        eager = rec.take()[1]
+        kernel, culls = runner.energy_fn.kernel, cull.cull_tile_bits
+        before = (kernel.launches, culls.launches)
+        state, outs = runner.run_segmented(30, 10)
+        torch.cuda.synchronize()
+        graphed = rec.take()[1]
+    assert (kernel.launches - before[0], culls.launches - before[1]) == (30, 30)
+    for name in ("poses_scored", "cull_checked", "cull_kept"):
+        assert graphed[name] == eager[name], name
+    assert graphed["graph_steps"] == 29
+    runner.release()
+    assert outs.t.shape == ref_outs.t[20:].shape
+    for name in SwarmState._fields:
+        for got, want in ((getattr(state, name), getattr(ref_state, name)),
+                          (getattr(outs, name), getattr(ref_outs, name)[20:])):
+            if system == "1ppe" or name == "num_neighbors":
+                assert torch.equal(got, want), name
+            else:
+                torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+
+
+def test_graphed_resume_is_bit_exact(cuda, tmp_path):
+    """A graphed run resumed from the step-20 sidecar ends on the bits of the
+    uninterrupted graphed run."""
+    full = _graphed_runner(cuda, "1ppe", str(tmp_path / "full"))
+    want, _ = full.run_segmented(30, 10)
+    resumed = _graphed_runner(cuda, "1ppe", str(tmp_path / "resumed"))
+    resumed.load_snapshot(tmp_path / "full" / "gso_20.out")
+    got, _ = resumed.run_segmented(30, 10)
+    full.release()
+    resumed.release()
+    for name in SwarmState._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert ((tmp_path / "full" / "gso_30.out").read_bytes()
+            == (tmp_path / "resumed" / "gso_30.out").read_bytes())
 
 
 @pytest.mark.parametrize("g", [37, 200])

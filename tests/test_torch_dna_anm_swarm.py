@@ -116,12 +116,14 @@ def shapes(n_rec, n_lig, modes, method="dna"):
 
 
 def test_auto_picks_the_kernel_at_1azp():
-    """1094 x 506 atoms, 10 + 10 modes: one swarm of 200 poses a call is
+    """1094 x 506 atoms, 10 + 10 modes: 200 poses a call op by op are
     110.7M pair-poses, over the 60M threshold of DNA; 100 poses (55.3M) are
-    under it; off a CUDA device the pick is dense."""
+    under it, but replayed steps take the kernel; off a CUDA device the
+    pick is dense."""
     cuda = torch.device("cuda")
     assert pick_energy_mode(shapes(1094, 506, 10), cuda, 200) == "kernel"
     assert pick_energy_mode(shapes(1094, 506, 10), cuda, 100) == "dense"
+    assert pick_energy_mode(shapes(1094, 506, 10), cuda, 100, replayed=True) == "kernel"
     assert pick_energy_mode(shapes(1094, 506, 10), torch.device("cpu"), 200) == "dense"
 
 
